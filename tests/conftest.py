@@ -22,3 +22,9 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 assert jax.devices()[0].platform == "cpu"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels have no CPU mode); skipped without one")

@@ -1,0 +1,117 @@
+"""The CUDA kernels K1 (`grouped_gemm_quant`) and K2 (`fused_ffn_quant`)
+against their plain PyTorch twins on the GPU, and the decode engine on the
+GPU against the same engine on the CPU.
+
+These tests need an NVIDIA GPU and nvcc and skip without them (a CUDA
+kernel has no CPU mode). This file imports no JAX; on a machine without
+JAX run it as `python -m pytest --noconftest tests/test_torch_kernels_gpu.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tutel_tpu_torch import moe
+from tutel_tpu_torch.ops import activations, fused_ffn, grouped_gemm_quant
+from tutel_tpu_torch.ops import quant
+from tutel_tpu_torch.serving import MoeDecodeEngine, Request
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, ref, counts):
+    live = (torch.arange(ref.shape[1], device=ref.device)[None, :, None]
+            < counts[:, None, None])
+    diff = torch.where(live, (got.float() - ref.float()).abs(), 0.0)
+    scale = torch.where(live, ref.float().abs(), 0.0).max()
+    return float(diff.max() / scale)
+
+
+def _counts(e, c, device, seed):
+    counts = np.random.default_rng(seed).integers(0, c + 1, e)
+    counts[0] = 0                                   # an empty expert
+    counts[-1] = c                                  # a full one
+    return torch.tensor(counts, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,blocks", [(4, 1), (8, 1), (4, 2)])
+def test_grouped_gemm_quant_kernel_matches_twin(cuda, dtype, bits, blocks):
+    g = torch.Generator(device=cuda).manual_seed(bits + blocks)
+    e, c, k, n = 4, 20, 256, 640                    # 2 row tiles, 2 strips
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(dtype)
+    w = torch.randn(e, k, n, generator=g, device=cuda) * 0.05
+    qw = quant.quantize(w, bits, shard_blocks=blocks)
+    counts = _counts(e, c, cuda, bits)
+    before = grouped_gemm_quant.grouped_gemm_quant.launches
+    got = grouped_gemm_quant.grouped_gemm_quant(x, qw, counts)
+    torch.cuda.synchronize()
+    assert grouped_gemm_quant.grouped_gemm_quant.launches == before + 1
+    ref = grouped_gemm_quant.grouped_gemm_quant_reference(x, qw, counts)
+    assert got.dtype == dtype and _rel_err(got, ref, counts) <= TOL[dtype]
+    dead = (torch.arange(c, device=cuda)[None, :, None]
+            >= counts[:, None, None])
+    assert not torch.any(torch.where(dead, got.float(), 0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,use_bias,act,k", [
+    (4, True, activations.gelu, 128),               # K < H
+    (4, False, activations.relu, 256),
+    (8, True, activations.relu, 128),
+    (8, False, activations.gelu, 256),
+])
+def test_fused_ffn_quant_kernel_matches_twin(cuda, dtype, bits, use_bias,
+                                             act, k):
+    g = torch.Generator(device=cuda).manual_seed(bits * 2 + k)
+    e, c, h, n = 4, 20, 256, 192                    # n < t2 * bw
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(dtype)
+    w1 = torch.randn(e, k, h, generator=g, device=cuda) * 0.05
+    w2 = torch.randn(e, h, n, generator=g, device=cuda) * 0.05
+    b1 = torch.randn(e, h, generator=g, device=cuda) * 0.1 if use_bias else None
+    b2 = torch.randn(e, n, generator=g, device=cuda) * 0.1 if use_bias else None
+    st = fused_ffn.prepare_fused_ffn(quant.quantize(w1, bits),
+                                     quant.quantize(w2, bits), b1, b2, bw=128)
+    counts = _counts(e, c, cuda, k)
+    got = fused_ffn.fused_ffn_quant(x, st, counts, activation_fn=act)
+    torch.cuda.synchronize()
+    ref = fused_ffn.fused_ffn_quant_reference(x, st, counts, act)
+    assert got.shape == (e, c, n) and _rel_err(got, ref, counts) <= TOL[dtype]
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        fused_ffn.fused_ffn_quant(x, st, counts, activation_fn=torch.tanh)
+
+
+@pytest.mark.parametrize("auto_fuse", [True, False])
+def test_engine_on_gpu_matches_cpu(cuda, auto_fuse):
+    kw = dict(gate_type={"type": "top", "k": 2, "capacity_factor": 0.0},
+              experts={"type": "ffn", "num_experts_per_device": 8,
+                       "hidden_size_per_expert": 256,
+                       "has_fc1_bias": False, "has_fc2_bias": False},
+              model_dim=128)
+    cpu_layer = moe.moe_layer(device="cpu", **kw)
+    gpu_layer = moe.moe_layer(device=cuda, **kw)
+    params = cpu_layer.init(torch.Generator().manual_seed(0))
+    params["experts"] = quant.quantize_expert_params(params["experts"], 4)
+    gpu_params = {"gates": [{"wg": params["gates"][0]["wg"].to(cuda)}],
+                  "experts": {k: v.to(cuda)
+                              for k, v in params["experts"].items()}}
+    states = np.random.default_rng(1).standard_normal((12, 128)).astype(
+        np.float32)
+    outs = []
+    for layer, p in ((cpu_layer, params), (gpu_layer, gpu_params)):
+        eng = MoeDecodeEngine(layer, p, max_batch=8, auto_fuse=auto_fuse,
+                              state_update="residual_norm")
+        outs.append(eng.run([Request(uid=i, state=states[i], remaining=3)
+                             for i in range(12)], chunk=2))
+    for uid, ref in outs[0].items():
+        err = (outs[1][uid].float() - ref).abs().max() / ref.abs().max()
+        assert float(err) <= 1e-4, uid

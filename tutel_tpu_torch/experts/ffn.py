@@ -1,0 +1,81 @@
+"""Batched per-expert two-layer FFN (counterpart: tutel_tpu/experts/ffn.py:28-129).
+
+Weights are input-major as in the JAX package: fc1_w [E, M, H],
+fc2_w [E, H, O]. Float weights run two batched matmuls (`torch.bmm`, as
+the JAX package leaves these to XLA); quantized weights
+(`ops.quant.QuantizedWeight`) run `ops.grouped_gemm_quant.quantized_ffn`,
+which launches the CUDA kernels K2 or K1 for CUDA tensors.
+The default activation is relu.
+"""
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..ops.activations import relu
+from ..ops.grouped_gemm_quant import quantized_ffn
+from ..ops.quant import QuantizedWeight
+from ..utils import initializers
+
+
+@dataclasses.dataclass
+class FusedExpertsNetwork:
+    model_dim: int
+    hidden_size_per_expert: int
+    num_experts_per_device: int = 1
+    activation_fn: Optional[Callable] = None
+    output_dim: Optional[int] = None
+    has_fc1_bias: bool = True
+    has_fc2_bias: bool = True
+    activation_bits: int = 0       # 8 = W8A8, a later slice (kernels K3, K5)
+
+    def __post_init__(self):
+        if self.activation_bits not in (0, None):
+            raise NotImplementedError(
+                "activation_bits=8 (W8A8) is not ported yet")
+        self.output_dim = self.output_dim or self.model_dim
+        if self.activation_fn is None:
+            self.activation_fn = relu
+
+    def init(self, generator=None, dtype=torch.float32,
+             device="cpu") -> Dict[str, Any]:
+        e, m, h, o = (self.num_experts_per_device, self.model_dim,
+                      self.hidden_size_per_expert, self.output_dim)
+
+        def uniform(shape, fan_in):
+            return initializers.linear_uniform(
+                shape, fan_in=fan_in, dtype=dtype, generator=generator,
+                device=device)
+
+        params = {"fc1_w": uniform((e, m, h), m),
+                  "fc2_w": uniform((e, h, o), h)}
+        if self.has_fc1_bias:
+            params["fc1_b"] = uniform((e, h), m)
+        if self.has_fc2_bias:
+            params["fc2_b"] = uniform((e, o), h)
+        return params
+
+    def apply(self, params, x, ctx=None):
+        """x: [E, rows, M] -> [E, rows, output_dim]."""
+        fc1_w, fc2_w = params["fc1_w"], params["fc2_w"]
+        if isinstance(fc1_w, QuantizedWeight):
+            return quantized_ffn(x, params, ctx,
+                                 activation_fn=self.activation_fn,
+                                 output_dim=self.output_dim)
+        fc1_b, fc2_b = params.get("fc1_b"), params.get("fc2_b")
+        y = torch.bmm(x, fc1_w.to(x.dtype))
+        if fc1_b is not None:
+            y = y + fc1_b.to(y.dtype)[:, None, :]
+        y = self.activation_fn(y)
+        y = torch.bmm(y, fc2_w.to(y.dtype))
+        if fc2_b is not None:
+            bias = fc2_b.to(y.dtype)[:, None, :]
+            if bias.shape[-1] != self.output_dim:
+                bias = torch.nn.functional.pad(
+                    bias, (0, self.output_dim - bias.shape[-1]))
+            y = y + bias
+        return y
+
+
+ExpertModule = FusedExpertsNetwork

@@ -1,0 +1,30 @@
+"""Expert activations, and their codes in the CUDA kernels.
+
+`gelu` is the tanh approximation, as `jax.nn.gelu` computes by default.
+A kernel takes an activation as a code; `kernel_code` raises for any
+other callable, so a CUDA call never silently runs another function.
+"""
+
+import torch
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def gelu(x):
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+_KERNEL_CODES = {relu: 0, torch.relu: 0, torch.nn.functional.relu: 0,
+                 gelu: 1}
+
+
+def kernel_code(fn):
+    """0 for relu, 1 for tanh-gelu; ValueError for anything else."""
+    code = _KERNEL_CODES.get(fn)
+    if code is None:
+        raise ValueError(
+            f"activation {fn!r} has no CUDA kernel; use "
+            "tutel_tpu_torch.ops.activations.relu or .gelu")
+    return code
