@@ -11,17 +11,36 @@ In order, it
   3. holds each kernel (K1 grouped_gemm_quant, K2 fused_ffn_quant) against
      its plain PyTorch twin on the card in bfloat16, at the decode server's
      shape (128 experts, 2048 x 2048, INT4, capacity 32, the row counts of
-     512 routed tokens), at the same width with every row live, and at a
-     K < H shape, and times kernel, twin and a bf16 torch.bmm yardstick
-     with CUDA events;
+     512 routed tokens), at the same width with every row live, at a
+     K < H shape, and at the LM server's expert shapes (a decode step and
+     a prefill chunk of capacity 8192), and times kernel, twin and a bf16
+     torch.bmm yardstick with CUDA events;
   4. serves 512 requests of 8-32 decode steps through MoeDecodeEngine at
      128 experts x 2048 x 2048, top-2, dropless, INT4, bfloat16, batch 256,
      residual_norm (the shape of benchmarks/bench_dropless_decode.py), with
      the fused kernel (auto_fuse=True), then a shorter run on the two-call
      path (auto_fuse=False), counting each kernel's launches in each run;
   5. checks a small engine on the card against the same engine on the CPU;
-  6. prints one JSON line per kernel check, the server's JSON line, the
-     {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+  6. holds the attention kernels K6 decode_attn and K7 prefill_attn and the
+     KV-cache write K8 against their twins at the LM server's shapes (64
+     rows, 8 heads of 128, 2 KV groups, cache 2048; K6 with fresh rows over
+     the whole window, K7 at a 128-query chunk starting at 1536, K8 as one
+     step's 16 tensors), in INT8, bfloat16 and INT4 caches, and times each
+     with its twin and a PyTorch yardstick (scaled_dot_product_attention,
+     the 16 index_put_ calls);
+  7. serves 64 prompts of 1664 tokens, 320 new tokens each, through
+     LmDecodeEngine over a TransformerMoE at full width (vocabulary 32768,
+     model_dim 1024, 8 heads, 2 KV heads, 4 layers with MoE in 1 and 3, 32
+     INT4 experts of 2048, top-2, dropless, INT8 KV cache, bfloat16; the
+     round-5 2k serving configuration of benchmarks/bench_lm_serving.py),
+     after a short warm-up run, counting each kernel's launches; then
+     traces one decode chunk with torch.profiler (device busy share, the
+     kernels with the most device time);
+  8. checks a small LM engine on the card against the same engine on the
+     CPU (float32, INT8 and float caches): the same greedy tokens, and
+     apply_decode logits within 1e-4;
+  9. prints one JSON line per check and phase, the {"kernels": [...]} line,
+     and last {"ok": true, "device": {...}}.
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
@@ -41,8 +60,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tutel_tpu_torch import moe  # noqa: E402
 from tutel_tpu_torch.csrc import build  # noqa: E402
+from tutel_tpu_torch.models import TransformerMoE  # noqa: E402
+from tutel_tpu_torch.models import TransformerMoEConfig  # noqa: E402
 from tutel_tpu_torch.ops import activations, fused_ffn, quant  # noqa: E402
+from tutel_tpu_torch.ops import decode_attn as da  # noqa: E402
 from tutel_tpu_torch.ops import grouped_gemm_quant as gq  # noqa: E402
+from tutel_tpu_torch.ops import kv_write  # noqa: E402
+from tutel_tpu_torch.serving import LmDecodeEngine, LmRequest  # noqa: E402
 from tutel_tpu_torch.serving import MoeDecodeEngine, Request  # noqa: E402
 
 SEED = 0
@@ -223,6 +247,347 @@ def small_engine_check():
                            f"{worst} > {SMALL_TOL}")
     return worst
 
+# -- the LM serving path: K6, K7, K8 ----------------------------------------
+
+# the LM server's attention shapes (benchmarks/bench_lm_serving.py, 2k)
+ATT = dict(b=64, nh=8, kvh=2, hd=128, t=2048)
+BYTES_PER_VALUE = {"int8": 1.0, "bfloat16": 2.0, "int4": 0.5}
+
+
+def kv_cache(g, b, t, kvh, hd, mode):
+    """Random K or V cache of b x t rows in the stored form of `mode`:
+    (values, scales or None, the same values dequantized to bf16 as
+    [B, KVH, T, HD])."""
+    x = torch.randn(b * t, kvh, hd, generator=g, device="cuda")
+    if mode == "bfloat16":
+        vals = x.to(torch.bfloat16)
+        return vals.reshape(b, t, -1), None, vals.reshape(
+            b, t, kvh, hd).transpose(1, 2)
+    fn = (TransformerMoE._kv_quantize if mode == "int8"
+          else TransformerMoE._kv_quantize4)
+    vals, sc = fn(x)
+    ints = vals if mode == "int8" else da.unpack_int4(vals)
+    deq = (ints.float().reshape(b * t, kvh, hd) * sc[..., None]).to(
+        torch.bfloat16)
+    return (vals.reshape(b, t, -1).contiguous(),
+            sc.reshape(b, t, kvh).transpose(1, 2).contiguous(),
+            deq.reshape(b, t, kvh, hd).transpose(1, 2))
+
+
+def rel_err(got, ref):
+    diff = float((got.float() - ref.float()).abs().max())
+    return diff, diff / float(ref.float().abs().max())
+
+
+def sdpa_ms(q, k_heads, v_heads, mask):
+    """scaled_dot_product_attention over K/V already tiled to the query
+    heads (head h reads group h % KVH: `.repeat`, not repeat_interleave)."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    return median_ms(lambda: f(q, k_heads, v_heads, attn_mask=mask))
+
+
+def check_decode_attn(mode, bandwidth, b=ATT["b"]):
+    """K6 with fresh rows over the whole window: every row at pos W - 1."""
+    nh, kvh, hd, t = (ATT[k] for k in ("nh", "kvh", "hd", "t"))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    q = torch.randn(b, nh, hd, generator=g, device="cuda").to(torch.bfloat16)
+    k, ks, kd = kv_cache(g, b, t, kvh, hd, mode)
+    v, vs, vd = kv_cache(g, b, t, kvh, hd, mode)
+    kn, kns, _ = kv_cache(g, b, 1, kvh, hd, mode)
+    vn, vns, _ = kv_cache(g, b, 1, kvh, hd, mode)
+    pos = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, attn_len=t,
+              kv_bits=4 if mode == "int4" else 8, k_new=kn[:, 0].contiguous(),
+              v_new=vn[:, 0].contiguous(),
+              k_new_scale=None if kns is None else kns[..., 0].contiguous(),
+              v_new_scale=None if vns is None else vns[..., 0].contiguous())
+    got = da.decode_attn(q, k, v, pos, **kw)
+    ref = da.decode_attn_reference(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, ref)
+    live = b * (t - 1)                       # cache positions read
+    per_pos = 2 * kvh * hd * BYTES_PER_VALUE[mode] + (
+        0 if mode == "bfloat16" else 2 * kvh * 4)
+    fresh = 2 * b * (kvh * hd * BYTES_PER_VALUE[mode]
+                     + (0 if mode == "bfloat16" else 4 * kvh))
+    moved = live * per_pos + fresh + 2 * q.numel() * 2 + 4 * b
+    ops = 4 * nh * hd * (live + b)
+    mask = (torch.arange(t, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    mq = nh // kvh
+    r = {"name": "decode_attn", "cache": mode, "B": b, "NH": nh, "KVH": kvh,
+         "HD": hd, "W": t, "fresh": True, "max_abs_err": abs_err,
+         "max_rel_err": err, "tol": BF16_TOL,
+         "ms": median_ms(lambda: da.decode_attn(q, k, v, pos, **kw)),
+         "plain_ms": median_ms(
+             lambda: da.decode_attn_reference(q, k, v, pos, **kw)),
+         "bytes": moved, "ops": ops,
+         "bound_ms": 1e3 * max(moved / bandwidth, ops / BF16_PEAK),
+         "bound_by": "bytes" if moved / bandwidth >= ops / BF16_PEAK
+         else "operations"}
+    key = "library_ms" if mode == "bfloat16" else "sdpa_dequant_ms"
+    r[key] = sdpa_ms(q[:, :, None], kd.repeat(1, mq, 1, 1),
+                     vd.repeat(1, mq, 1, 1), mask)
+    if not err <= BF16_TOL:
+        raise RuntimeError(f"decode_attn ({mode}) disagrees with its twin: "
+                           f"{err} > {BF16_TOL}")
+    return r
+
+
+def check_prefill_attn(mode, bandwidth, tq=128, start=1536):
+    """K7 for the last prompt chunk of a 1664-token prefill."""
+    b, nh, kvh, hd, t = (ATT[k] for k in ("b", "nh", "kvh", "hd", "t"))
+    w = start + tq
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    q = torch.randn(b, tq, nh, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    k, ks, kd = kv_cache(g, b, t, kvh, hd, mode)
+    v, vs, vd = kv_cache(g, b, t, kvh, hd, mode)
+    kw = dict(k_scale=ks, v_scale=vs, attn_len=w,
+              kv_bits=4 if mode == "int4" else 8)
+    got = da.prefill_attn(q, k, v, start, **kw)
+    ref = da.prefill_attn_reference(q, k, v, start, **kw)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, ref)
+    per_pos = 2 * kvh * hd * BYTES_PER_VALUE[mode] + (
+        0 if mode == "bfloat16" else 2 * kvh * 4)
+    moved = b * w * per_pos + 2 * q.numel() * 2
+    live = sum(min(w, start + i + 1) for i in range(tq))  # per (b, head)
+    ops = 4 * b * nh * hd * live
+    mask = (torch.arange(w, device="cuda")[None, :]
+            <= start + torch.arange(tq, device="cuda")[:, None])
+    mq = nh // kvh
+    r = {"name": "prefill_attn", "cache": mode, "B": b, "TQ": tq,
+         "start": start, "NH": nh, "KVH": kvh, "HD": hd, "W": w,
+         "max_abs_err": abs_err, "max_rel_err": err, "tol": BF16_TOL,
+         "ms": median_ms(lambda: da.prefill_attn(q, k, v, start, **kw)),
+         "plain_ms": median_ms(
+             lambda: da.prefill_attn_reference(q, k, v, start, **kw)),
+         "bytes": moved, "ops": ops,
+         "bound_ms": 1e3 * max(moved / bandwidth, ops / BF16_PEAK),
+         "bound_by": "bytes" if moved / bandwidth >= ops / BF16_PEAK
+         else "operations"}
+    key = "library_ms" if mode == "bfloat16" else "sdpa_dequant_ms"
+    r[key] = sdpa_ms(q.transpose(1, 2),
+                     kd[:, :, :w].repeat(1, mq, 1, 1),
+                     vd[:, :, :w].repeat(1, mq, 1, 1), mask)
+    if not err <= BF16_TOL:
+        raise RuntimeError(f"prefill_attn ({mode}) disagrees with its twin: "
+                           f"{err} > {BF16_TOL}")
+    return r
+
+
+def check_kv_write(bandwidth, layers=4):
+    """K8 as one decode step of the LM server: per layer K, V int8
+    [64, 2048, 256] and their scales f32 [64, 2, 2048]; exact."""
+    b, kvh, hd, t = (ATT[k] for k in ("b", "kvh", "hd", "t"))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows_c = [torch.randint(-127, 128, (b, t, kvh * hd), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2 * layers)]
+    cols_c = [torch.rand(b, kvh, t, generator=g, device="cuda")
+              for _ in range(2 * layers)]
+    rows = [torch.randint(-127, 128, (b, kvh * hd), generator=g,
+                          device="cuda", dtype=torch.int8)
+            for _ in range(2 * layers)]
+    cols = [torch.rand(b, kvh, generator=g, device="cuda")
+            for _ in range(2 * layers)]
+    pos = torch.randint(0, t, (b,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    want_r = [c.clone() for c in rows_c]
+    want_c = [c.clone() for c in cols_c]
+    kv_write.write_step_reference(want_r, rows, pos, want_c, cols)
+    kv_write.write_step(rows_c, rows, pos, col_caches=cols_c, cols=cols)
+    torch.cuda.synchronize()
+    diff = max(float((a.float() - w.float()).abs().max())
+               for a, w in zip(rows_c + cols_c, want_r + want_c))
+    if diff != 0:
+        raise RuntimeError(f"kv_write is not exact: max diff {diff}")
+    ids, pl = torch.arange(b, device="cuda"), pos.long()
+
+    def index_put():
+        for c, r in zip(rows_c, rows):
+            c.index_put_((ids, pl), r)
+        for c, s in zip(cols_c, cols):
+            c[ids, :, pl] = s
+
+    moved = 2 * sum(r.numel() * r.element_size() for r in rows + cols) + 4 * b
+    return {"name": "kv_write", "tensors": len(rows_c) + len(cols_c),
+            "B": b, "max_abs_err": diff, "max_rel_err": diff, "tol": 0.0,
+            "ms": median_ms(lambda: kv_write.write_step(
+                rows_c, rows, pos, col_caches=cols_c, cols=cols)),
+            "plain_ms": median_ms(lambda: kv_write.write_step_reference(
+                rows_c, rows, pos, cols_c, cols)),
+            "library_ms": median_ms(index_put),
+            "bytes": moved, "ops": 0, "bound_ms": 1e3 * moved / bandwidth,
+            "bound_by": "bytes"}
+
+
+LM_CONFIG = dict(vocab_size=32768, max_len=2048, model_dim=1024, num_heads=8,
+                 num_kv_heads=2, num_layers=4, ffn_hidden=4096, moe_every=2,
+                 num_local_experts=32, top_k=2, capacity_factor=0.0,
+                 expert_hidden=2048, kv_bits=8)
+
+
+def lm_params(model, generator):
+    """Random LM weights from a seeded generator, experts quantized INT4."""
+    params = model.init(generator)
+    for blk in params["blocks"]:
+        if "moe" in blk:
+            blk["moe"]["experts"] = quant.quantize_expert_params(
+                blk["moe"]["experts"], 4)
+    return params
+
+
+LM_KERNELS = {"grouped_gemm_quant": gq.grouped_gemm_quant,
+              "fused_ffn_quant": fused_ffn.fused_ffn_quant,
+              "decode_attn": da.decode_attn, "prefill_attn": da.prefill_attn,
+              "kv_write": kv_write.write_step}
+
+
+def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed):
+    """Serve n_requests prompts through a fresh LmDecodeEngine of 64 slots
+    (chunk 16, speculative capacity 4.0): admit and prefill them all, then
+    decode until every request finishes. Returns the phase's numbers."""
+    rng = np.random.default_rng(seed)
+    reqs = [LmRequest(uid=i, prompt=rng.integers(
+        0, model.cfg.vocab_size, prompt_len).astype(np.int32),
+        max_new_tokens=new_tokens) for i in range(n_requests)]
+    eng = LmDecodeEngine(model, params, max_batch=64,
+                         speculative_capacity=4.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not eng.try_add(r):
+            raise RuntimeError("the LM phase admits every request at once")
+    eng._flush_admissions()              # what the first step_chunk does
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    while eng.active:
+        eng.step_chunk(16)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = eng._generated
+    if len(out) != n_requests or any(
+            len(toks) != new_tokens or not all(
+                0 <= tok < model.cfg.vocab_size for tok in toks)
+            for toks in out.values()):
+        raise RuntimeError("the LM phase did not generate every token")
+    tokens = sum(len(toks) for toks in out.values())
+    return {"requests": n_requests, "prompt_len": prompt_len,
+            "new_tokens": new_tokens, "tokens": tokens,
+            "prefill_s": t1 - t0, "decode_steps": eng.stats["steps"],
+            "decode_s": t2 - t1,
+            "ms_per_decode_step": 1e3 * (t2 - t1) / eng.stats["steps"],
+            "seconds": t2 - t0, "tokens_per_s": tokens / (t2 - t0),
+            "spec_retries": eng.stats["spec_retries"]}
+
+
+def lm_profile(model, params, seed, steps=16):
+    """One decode chunk of the full-width LM engine (64 slots, 1664-token
+    prompts) under torch.profiler: the device's busy share of the chunk's
+    span and the kernels with the most device time. The profiler slows the
+    host, so the busy share is a lower bound for an unprofiled chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(seed)
+    eng = LmDecodeEngine(model, params, max_batch=64,
+                         speculative_capacity=4.0)
+    for i in range(64):
+        eng.try_add(LmRequest(uid=i, prompt=rng.integers(
+            0, model.cfg.vocab_size, 1664).astype(np.int32),
+            max_new_tokens=3 * steps))
+    eng.step_chunk(steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step_chunk(steps)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    busy, cur, by_name = 0.0, None, {}
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        if cur is None or start > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy += cur[1] - cur[0]
+    span = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # device time per step of each ported kernel, found by its CUDA symbol
+    symbols = {"grouped_gemm_quant": "gmm_quant_kernel",
+               "fused_ffn_quant": "fused_ffn_kernel",
+               "decode_attn": "decode_attn_kernel",
+               "prefill_attn": "prefill_attn_kernel",
+               "kv_write": "kv_write_kernel"}
+    ported = {k: sum(t for n, t in by_name.items() if s in n) / 1e3 / steps
+              for k, s in symbols.items()}
+    return {"steps": steps, "device_events": len(spans),
+            "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "busy_share": busy / span,
+            "top_kernels_ms_per_step": [[n[:70], t / 1e3 / steps]
+                                        for n, t in top],
+            "ported_kernels_ms_per_step": ported}
+
+
+def small_lm_check():
+    """A small LM engine on the card against the same engine on the CPU,
+    float32, with INT8 and float caches: greedy tokens identical, and
+    apply_decode logits (after the same prefill) within SMALL_TOL."""
+    worst = 0.0
+    for kv_bits in (8, 0):
+        cfg = TransformerMoEConfig(
+            vocab_size=97, max_len=256, model_dim=256, num_heads=2,
+            num_kv_heads=1, num_layers=2, ffn_hidden=512, moe_every=2,
+            num_local_experts=4, top_k=2, capacity_factor=0.0,
+            expert_hidden=512, kv_bits=kv_bits)
+        models = [TransformerMoE(cfg, device=d) for d in ("cpu", "cuda")]
+        params = lm_params(models[0], torch.Generator().manual_seed(SEED))
+
+        def to_cuda(tree):
+            if isinstance(tree, dict):
+                return {k: to_cuda(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [to_cuda(v) for v in tree]
+            return tree.to("cuda")
+
+        gparams = to_cuda(params)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, 97, n).astype(np.int32)
+                   for n in (5, 130, 77, 20, 9, 200)]
+        toks, logits = [], []
+        for model, p in zip(models, (params, gparams)):
+            eng = LmDecodeEngine(model, p, max_batch=4,
+                                 speculative_capacity=2.0)
+            toks.append(eng.run([LmRequest(uid=i, prompt=pr,
+                                           max_new_tokens=10)
+                                 for i, pr in enumerate(prompts)], chunk=4))
+            pr = torch.from_numpy(np.stack([prompts[0], prompts[3][:5]]))
+            cache = model.init_cache(2)
+            _, cache = model.prefill(eng.params, pr, cache)
+            steps = []
+            for i in range(3):
+                lg, cache, _ = model.apply_decode(
+                    eng.params, pr[:, i], cache, torch.full((2,), 5 + i))
+                steps.append(lg.cpu())
+            logits.append(torch.stack(steps))
+        for uid, ref in toks[0].items():
+            if toks[1][uid].tolist() != ref.tolist():
+                raise RuntimeError(f"LM engine on the card (kv_bits="
+                                   f"{kv_bits}) generated other tokens "
+                                   f"for request {uid}")
+        err = float((logits[1] - logits[0]).abs().max()
+                    / logits[0].abs().max())
+        worst = max(worst, err)
+    if not worst <= SMALL_TOL:
+        raise RuntimeError(f"apply_decode on the card disagrees with the "
+                           f"CPU: {worst} > {SMALL_TOL}")
+    return worst
+
 
 def main():
     if not torch.cuda.is_available():
@@ -253,7 +618,16 @@ def main():
                "relu"),
               ("k_lt_h", 64, 32, 1024, 4096, 1024,
                np.random.default_rng(SEED + 1).integers(0, 33, 64), True,
-               "gelu")]
+               "gelu"),
+              # the LM server's MoE blocks: 32 experts, 1024 x 2048 x 1024,
+              # a decode step (64 tokens at the speculated capacity 16) and
+              # a prefill chunk (64 x 128 tokens at capacity 8192)
+              ("lm_decode", 32, 16, 1024, 2048, 1024, np.minimum(
+                  np.random.default_rng(SEED + 2).multinomial(
+                      128, [1 / 32] * 32), 16), True, "relu"),
+              ("lm_prefill", 32, 8192, 1024, 2048, 1024,
+               np.random.default_rng(SEED + 3).multinomial(
+                   16384, [1 / 32] * 32), True, "relu")]
     checks = {}
     for shape in shapes:
         for r in check_kernels(shape, bandwidth):
@@ -298,22 +672,74 @@ def main():
     print(json.dumps({"phase": "small_engine_vs_cpu",
                       "max_rel_err": small_engine_check(), "tol": SMALL_TOL}),
           flush=True)
+    del layer, params, eng
+    torch.cuda.empty_cache()
 
-    sources = {"grouped_gemm_quant": (
-        "tutel_tpu_torch/csrc/grouped_gemm_quant.cu",
-        "tutel_tpu/ops/grouped_gemm_pallas.py:94"),
+    for mode in ("int8", "bfloat16", "int4"):
+        for fn in (check_decode_attn, check_prefill_attn):
+            r = fn(mode, bandwidth)
+            print(json.dumps(r), flush=True)
+            checks[(r["name"], mode)] = r
+        torch.cuda.empty_cache()
+    # K6 at 8 rows (16 blocks): the time one block needs for the window
+    print(json.dumps(check_decode_attn("int8", bandwidth, b=8)), flush=True)
+    r = check_kv_write(bandwidth)
+    print(json.dumps(r), flush=True)
+    checks[("kv_write", "int8")] = r
+    for name in ("decode_attn", "prefill_attn"):   # the bf16 cache's SDPA
+        checks[(name, "int8")]["library_ms"] = \
+            checks[(name, "bfloat16")]["library_ms"]
+    torch.cuda.empty_cache()
+
+    lm = TransformerMoE(TransformerMoEConfig(**LM_CONFIG,
+                                             dtype=torch.bfloat16),
+                        device="cuda")
+    lm_p = lm_params(lm, torch.Generator(device="cuda").manual_seed(SEED))
+    warm = lm_serve(lm, lm_p, 64, 1664, 16, SEED + 1)          # warm-up
+    print(json.dumps({"phase": "lm_warmup", **warm}), flush=True)
+    for f in LM_KERNELS.values():
+        f.launches = 0
+    lm_run = lm_serve(lm, lm_p, 64, 1664, 320, SEED)
+    counts = {k: f.launches for k, f in LM_KERNELS.items()}
+    print(json.dumps({"phase": "lm_serve", **lm_run, "launches": counts,
+                      "card": smi}), flush=True)
+    if counts["grouped_gemm_quant"] != 0 or any(
+            counts[k] <= 0 for k in counts if k != "grouped_gemm_quant"):
+        raise RuntimeError(f"the LM serve phase launched {counts}")
+    launches.update({k: counts[k] for k in
+                     ("decode_attn", "prefill_attn", "kv_write")})
+    print(json.dumps({"phase": "lm_profile",
+                      **lm_profile(lm, lm_p, SEED + 2)}), flush=True)
+    del lm, lm_p
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"phase": "small_lm_engine_vs_cpu",
+                      "max_rel_err": small_lm_check(), "tol": SMALL_TOL,
+                      "greedy_tokens": "identical"}), flush=True)
+
+    sources = {
+        "grouped_gemm_quant": ("tutel_tpu_torch/csrc/grouped_gemm_quant.cu",
+                               "tutel_tpu/ops/grouped_gemm_pallas.py:94",
+                               "decode"),
         "fused_ffn_quant": ("tutel_tpu_torch/csrc/fused_ffn_quant.cu",
-                            "tutel_tpu/ops/fused_ffn_pallas.py:209")}
+                            "tutel_tpu/ops/fused_ffn_pallas.py:209",
+                            "decode"),
+        "decode_attn": ("tutel_tpu_torch/csrc/decode_attn.cu",
+                        "tutel_tpu/ops/decode_attn_pallas.py:171", "int8"),
+        "prefill_attn": ("tutel_tpu_torch/csrc/prefill_attn.cu",
+                         "tutel_tpu/ops/decode_attn_pallas.py:493", "int8"),
+        "kv_write": ("tutel_tpu_torch/csrc/kv_write.cu",
+                     "tutel_tpu/ops/kv_write_pallas.py:146", "int8")}
     kernels = []
-    for name, (source, replaces) in sources.items():
-        r = checks[(name, "decode")]
+    for name, (source, replaces, shape) in sources.items():
+        r = checks[(name, shape)]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

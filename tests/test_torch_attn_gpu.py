@@ -1,0 +1,175 @@
+"""The CUDA kernels K6 (`decode_attn`), K7 (`prefill_attn`) and K8
+(`write_step`) against their plain PyTorch twins on the GPU, and the LM
+serving engine on the GPU against the same engine on the CPU.
+
+These tests need an NVIDIA GPU and nvcc and skip without them (a CUDA
+kernel has no CPU mode). This file imports no JAX; on a machine without
+JAX run it as `python -m pytest --noconftest tests/test_torch_attn_gpu.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tutel_tpu_torch.models import TransformerMoE, TransformerMoEConfig
+from tutel_tpu_torch.ops import decode_attn as da
+from tutel_tpu_torch.ops import kv_write, quant
+from tutel_tpu_torch.serving import LmDecodeEngine, LmRequest
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def _cache(g, b, t, kvh, hd, mode, dtype, dev):
+    """(k, v, k_scale, v_scale) in the cache's stored form."""
+    def one():
+        x = torch.randn(b * t, kvh, hd, generator=g, device=dev)
+        if mode == "float":
+            return x.reshape(b, t, -1).to(dtype), None
+        fn = (TransformerMoE._kv_quantize if mode == "int8"
+              else TransformerMoE._kv_quantize4)
+        vals, s = fn(x)
+        return (vals.reshape(b, t, -1).contiguous(),
+                s.reshape(b, t, kvh).transpose(1, 2).contiguous())
+    (k, ks), (v, vs) = one(), one()
+    return k, v, ks, vs
+
+
+MODES = ["float", "int8", "int4"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fresh", [False, True])
+@pytest.mark.parametrize("nh,kvh,hd", [(8, 2, 128), (4, 4, 64), (2, 1, 256),
+                                       (6, 2, 64)])       # 3 heads, padded to 4
+def test_decode_attn_kernel_matches_twin(cuda, mode, dtype, fresh, nh, kvh,
+                                         hd):
+    g = torch.Generator(device=cuda).manual_seed(hd + nh)
+    b, t = 5, 320
+    q = torch.randn(b, nh, hd, generator=g, device=cuda).to(dtype)
+    k, v, ks, vs = _cache(g, b, t, kvh, hd, mode, dtype, cuda)
+    pos = torch.tensor([0, 31, 32, 257, 299], device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs, attn_len=300,
+              kv_bits=4 if mode == "int4" else 8)
+    if fresh:
+        kn, vn, kns, vns = _cache(g, b, 1, kvh, hd, mode, dtype, cuda)
+        kw.update(k_new=kn[:, 0].contiguous(), v_new=vn[:, 0].contiguous(),
+                  k_new_scale=None if kns is None else kns[..., 0].contiguous(),
+                  v_new_scale=None if vns is None else vns[..., 0].contiguous())
+    before = da.decode_attn.launches
+    got = da.decode_attn(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attn.launches == before + 1
+    ref = da.decode_attn_reference(q, k, v, pos, **kw)
+    assert got.dtype == dtype and _rel_err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh,hd,tq,start", [
+    (8, 2, 128, 128, 256), (6, 2, 64, 37, 0), (4, 4, 256, 16, 100)])
+def test_prefill_attn_kernel_matches_twin(cuda, mode, dtype, nh, kvh, hd, tq,
+                                          start):
+    g = torch.Generator(device=cuda).manual_seed(tq + start)
+    b, t = 3, 512
+    q = torch.randn(b, tq, nh, hd, generator=g, device=cuda).to(dtype)
+    k, v, ks, vs = _cache(g, b, t, kvh, hd, mode, dtype, cuda)
+    kw = dict(k_scale=ks, v_scale=vs, attn_len=start + tq + 70,
+              kv_bits=4 if mode == "int4" else 8)
+    before = da.prefill_attn.launches
+    got = da.prefill_attn(q, k, v, start, **kw)
+    torch.cuda.synchronize()
+    assert da.prefill_attn.launches == before + 1
+    ref = da.prefill_attn_reference(q, k, v, start, **kw)
+    assert got.dtype == dtype and _rel_err(got, ref) <= TOL[dtype]
+
+
+def test_decode_attn_rejects_mismatched_shapes(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, t, nh, kvh, hd = 4, 64, 4, 2, 64
+    q = torch.randn(b, nh, hd, generator=g, device=cuda)
+    k, v, ks, vs = _cache(g, b, t, kvh, hd, "int8", torch.float32, cuda)
+    kn, vn, kns, vns = _cache(g, b, 1, kvh, hd, "int8", torch.float32, cuda)
+    pos = torch.full((b,), 10, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs, k_new=kn[:, 0].contiguous(),
+              v_new=vn[:, 0].contiguous(),
+              k_new_scale=kns[..., 0].contiguous(),
+              v_new_scale=vns[..., 0].contiguous())
+    with pytest.raises(ValueError, match="rows"):
+        da.decode_attn(q[:2], k, v, pos[:2], **kw)
+    with pytest.raises(ValueError, match="pos must be"):
+        da.decode_attn(q, k, v, pos[:3], **kw)
+    with pytest.raises(ValueError, match="fresh row scales"):
+        da.decode_attn(q, k, v, pos, **{**kw, "v_new_scale": kns[:3, :, 0]})
+
+
+def test_kv_write_kernel_is_exact(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, t = 6, 64
+    rows_c = [torch.randint(-100, 100, (b, t, 256), generator=g, device=cuda,
+                            dtype=torch.int8),
+              torch.randn(b, t, 96, generator=g, device=cuda).to(torch.bfloat16),
+              torch.randint(-100, 100, (b, t, 3), generator=g, device=cuda,
+                            dtype=torch.int8)]
+    rows = [torch.ones(b, c.shape[2], device=cuda).to(c.dtype) * 7
+            for c in rows_c]
+    cols_c = [torch.randn(b, 2, t, generator=g, device=cuda)]
+    cols = [torch.full((b, 2), 9.0, device=cuda)]
+    pos = torch.tensor([0, 1, 31, 63, 64, -1], device=cuda)   # 2 dropped
+    want_r = [c.clone() for c in rows_c]
+    want_c = [c.clone() for c in cols_c]
+    kv_write.write_step_reference(want_r, rows, pos, want_c, cols)
+    before = kv_write.write_step.launches
+    kv_write.write_step(rows_c, rows, pos, col_caches=cols_c, cols=cols)
+    torch.cuda.synchronize()
+    assert kv_write.write_step.launches == before + 1
+    for got, want in zip(rows_c + cols_c, want_r + want_c):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_lm_engine_on_gpu_matches_cpu(cuda, kv_bits):
+    """Greedy tokens of the whole serving path (K2, K6, K7, K8 on the card;
+    the twins on the CPU), float32."""
+    cfg = TransformerMoEConfig(
+        vocab_size=97, max_len=256, model_dim=256, num_heads=2,
+        num_kv_heads=1, num_layers=2, ffn_hidden=512, moe_every=2,
+        num_local_experts=4, top_k=2, capacity_factor=0.0,
+        expert_hidden=512, kv_bits=kv_bits)
+    cpu_model = TransformerMoE(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    moe = params["blocks"][1]["moe"]
+    moe["experts"] = quant.quantize_expert_params(moe["experts"], 4)
+    gpu_model = TransformerMoE(cfg, device=cuda)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 97, n).astype(np.int32)
+               for n in (5, 130, 77, 20, 9)]
+    outs = []
+    for model, p in ((cpu_model, params), (gpu_model, to(params, cuda))):
+        eng = LmDecodeEngine(model, p, max_batch=4, speculative_capacity=2.0)
+        outs.append(eng.run([LmRequest(uid=i, prompt=pr, max_new_tokens=12)
+                             for i, pr in enumerate(prompts)], chunk=4))
+    for uid, toks in outs[0].items():
+        assert outs[1][uid].tolist() == toks.tolist(), uid

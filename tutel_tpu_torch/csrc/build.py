@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 by `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC` into `build/kernels/` at the root of the checkout, then loaded
 with `ctypes`. Sources include no PyTorch header, so a build takes
-seconds; the library name carries a hash of the source, so an edited
-source is rebuilt and a stale library is never loaded.
+seconds; the library name carries a hash of the source and of the shared
+headers (`csrc/*.cuh`), so an edited source is rebuilt and a stale
+library is never loaded.
 
 `build_all()` starts one nvcc per source at once and waits for all of
 them; `load(name)` builds one if needed and returns the loaded library.
@@ -32,6 +33,14 @@ SIGNATURES = {
     # dtype, tile_rows, device; stream
     "fused_ffn_quant": ("fused_ffn_quant_launch",
                         [_P] * 5 + [_I] * 13 + [_P]),
+    # descriptor table (host), n, pos, B, device, stream
+    "kv_write": ("kv_write_launch", [_P, _I, _P, _I, _I, _P]),
+    # q, k, v, ks, vs, pos, k_new, v_new, k_new_scale, v_new_scale, out;
+    # B, NH, KVH, HD, T, W, mode, dtype, device; stream
+    "decode_attn": ("decode_attn_launch", [_P] * 11 + [_I] * 9 + [_P]),
+    # q, k, v, ks, vs, out; B, TQ, NH, KVH, HD, T, W, start, mode, dtype,
+    # device; stream
+    "prefill_attn": ("prefill_attn_launch", [_P] * 6 + [_I] * 11 + [_P]),
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,8 +60,10 @@ def _nvcc():
 
 
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared by the sources
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

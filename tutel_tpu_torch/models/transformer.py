@@ -1,0 +1,478 @@
+"""Decoder-only Transformer LM with MoE FFN blocks, inference and serving
+(counterpart: tutel_tpu/models/transformer.py:26-214, 576-1350).
+
+Same configuration, parameter tree and cache layout as the JAX model:
+`params = model.init(generator)`, `logits, l_aux = model.apply(params,
+tokens)`; the KV cache is one dict per block with flat slabs
+"k"/"v" [B, max_len, KVH * HD] (int8, or INT4 split-half packed bytes
+[B, max_len, KVH * HD / 2], with f32 scales "k_s"/"v_s" [B, KVH, max_len]
+when kv_bits is 8 or 4). Pre-LN blocks; every `moe_every`-th block's FFN is
+an MoE layer (`impls.moe_layer.MOELayer`, one device).
+
+The decode step has one structure on every device: each block's attention
+runs kernel K6 (`ops.decode_attn.decode_attn`) with the token's fresh K/V
+row injected, and the step's cache writes for all blocks go out at the
+end in one launch of kernel K8 (`ops.kv_write.write_step`). The prefill
+runs kernel K7 (`ops.decode_attn.prefill_attn`) per block and prompt
+chunk. On CPU tensors those functions run their plain twins; on CUDA
+tensors they launch the kernels or raise. The cache is updated in place.
+
+Not ported (later slices): the training path (`loss`, `_nll*`), the
+sequence-parallel forward (`apply_seqpar`, `_attn_seqpar`,
+`_attn_ringpar`, `seqpar_specs`) and multi-device expert-parallel
+padding. The JAX model's kernel-mode switches and XLA fallback paths
+(`_attn_kernel_mode`, `_prefill_kernel_mode`, TUTEL_TPU_DECODE_ATTN,
+TUTEL_TPU_PREFILL_ATTN, TUTEL_TPU_SKIP_KV_WRITE, the VMEM budget of the
+batched write) were devices of the TPU compiler and are not ported.
+"""
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..impls.moe_layer import MOELayer
+from ..ops.activations import gelu
+from ..ops.decode_attn import decode_attn, prefill_attn, unpack_int4
+from ..ops.kv_write import write_step
+from ..utils import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerMoEConfig:
+    vocab_size: int = 256
+    max_len: int = 256
+    model_dim: int = 128
+    num_heads: int = 4
+    num_layers: int = 4
+    ffn_hidden: int = 512
+    moe_every: int = 2                 # every Nth block uses MoE FFN
+    num_local_experts: int = 4
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    expert_hidden: int = 512
+    expert_type: str = "ffn"
+    gate_type: str = "top"
+    dtype: Any = torch.float32
+    expert_kwargs: Any = None          # extra expert-module fields
+    kv_bits: int = 0                   # 8 = INT8 KV cache, 4 = INT4 packed,
+                                       # 0 = the model dtype
+    num_kv_heads: int = 0              # grouped-query attention: K/V heads
+                                       # (0 = num_heads); query head h
+                                       # reads KV group h % num_kv_heads
+
+
+class TransformerMoE:
+    """Functional model: `init(generator) -> params`, `apply(params,
+    tokens)`, and the serving path `init_cache` / `prefill` /
+    `apply_decode`. Runs on `device` (default "cuda", which raises
+    without a GPU)."""
+
+    def __init__(self, config: TransformerMoEConfig, device="cuda"):
+        self.cfg = config
+        self.device = resolve_device(device)
+        if config.kv_bits not in (0, 8, 4):
+            raise ValueError(f"kv_bits={config.kv_bits} (0, 8 or 4)")
+        self.moe_layers: Dict[int, MOELayer] = {}
+        for i in range(config.num_layers):
+            if config.moe_every > 0 and (i + 1) % config.moe_every == 0:
+                self.moe_layers[i] = MOELayer(
+                    gate_type={"type": config.gate_type, "k": config.top_k,
+                               "capacity_factor": config.capacity_factor},
+                    experts={"type": config.expert_type,
+                             "num_experts_per_device":
+                                 config.num_local_experts,
+                             "hidden_size_per_expert": config.expert_hidden,
+                             **(config.expert_kwargs or {})},
+                    model_dim=config.model_dim, dtype=config.dtype,
+                    device=self.device)
+
+    # ------------------------------------------------------------------
+
+    @property
+    def _kvh(self) -> int:
+        """KV heads (grouped-query attention); == num_heads for MHA."""
+        cfg = self.cfg
+        kvh = cfg.num_kv_heads or cfg.num_heads
+        if cfg.num_heads % kvh:
+            raise ValueError(f"num_heads {cfg.num_heads} is not a multiple "
+                             f"of num_kv_heads {kvh}")
+        return kvh
+
+    def _split_qkv(self, qkv, lead_shape):
+        """The fused qkv projection -> q [.., nh, hd], k, v [.., kvh, hd]."""
+        cfg = self.cfg
+        nh, kvh = cfg.num_heads, self._kvh
+        hd = cfg.model_dim // nh
+        d, kvd = cfg.model_dim, kvh * hd
+        q = qkv[..., :d].reshape(*lead_shape, nh, hd)
+        k = qkv[..., d:d + kvd].reshape(*lead_shape, kvh, hd)
+        v = qkv[..., d + kvd:].reshape(*lead_shape, kvh, hd)
+        return q, k, v
+
+    def init(self, generator=None) -> Dict[str, Any]:
+        """Parameters on the model's device, drawn from `generator` (a
+        torch.Generator on that device; None = a generator seeded with 0).
+        Same distributions as the JAX model; the bits differ, so parity
+        with it goes through `convert.from_jax_params`."""
+        cfg = self.cfg
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        d = cfg.model_dim
+        scale = d ** -0.5
+        qkv_dim = d + 2 * self._kvh * (d // cfg.num_heads)
+
+        def normal(shape, std):
+            return (torch.randn(shape, generator=generator,
+                                device=self.device) * std).to(cfg.dtype)
+
+        def ln():
+            return {"scale": torch.ones(d, dtype=cfg.dtype,
+                                        device=self.device),
+                    "bias": torch.zeros(d, dtype=cfg.dtype,
+                                        device=self.device)}
+
+        params: Dict[str, Any] = {
+            "embed": normal((cfg.vocab_size, d), scale),
+            "pos": normal((cfg.max_len, d), scale),
+            "final_ln": ln(), "blocks": []}
+        for i in range(cfg.num_layers):
+            block = {"ln1": ln(), "ln2": ln(),
+                     "wqkv": normal((d, qkv_dim), scale),
+                     "wo": normal((d, d), scale)}
+            if i in self.moe_layers:
+                block["moe"] = self.moe_layers[i].init(generator)
+            else:
+                h = cfg.ffn_hidden
+                block["ffn"] = {
+                    "w1": normal((d, h), scale),
+                    "b1": torch.zeros(h, dtype=cfg.dtype, device=self.device),
+                    "w2": normal((h, d), h ** -0.5),
+                    "b2": torch.zeros(d, dtype=cfg.dtype, device=self.device)}
+            params["blocks"].append(block)
+        return params
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _ln(p, x):
+        """LayerNorm: statistics in float32, normalize in x's dtype."""
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        r = torch.rsqrt(var + 1e-5)
+        y = (x - mu.to(x.dtype)) * r.to(x.dtype)
+        return y * p["scale"] + p["bias"]
+
+    def _ffn(self, f, h):
+        """The dense FFN block: gelu(h @ w1 + b1) @ w2 + b2, bias and
+        activation in float32."""
+        hdn = gelu((h @ f["w1"]).float() + f["b1"].float()).to(self.cfg.dtype)
+        o = (hdn @ f["w2"]).float() + f["b2"].float()
+        return o.to(self.cfg.dtype)
+
+    def _moe_call(self, i, moe_params, h, **overrides):
+        """MoE layer i on activations h [..., d] (one device, so no
+        expert-parallel padding)."""
+        return self.moe_layers[i](moe_params, h, **overrides)
+
+    def _logits(self, params, x):
+        """Tied-embedding logits; float32 for float32 models, else the
+        model dtype (as the JAX model)."""
+        return x @ params["embed"].to(x.dtype).t()
+
+    def _attn(self, block, x):
+        """Causal self-attention over a whole sequence x [B, T, d] (the
+        full-forward oracle; the serving path uses the kernels)."""
+        cfg = self.cfg
+        b, t, d = x.shape
+        nh, hd, kvh = cfg.num_heads, d // cfg.num_heads, self._kvh
+        mq = nh // kvh
+        q, k, v = self._split_qkv(x @ block["wqkv"], (b, t))
+        # head h = m * kvh + g reads KV group g = h % kvh
+        q = q.reshape(b, t, mq, kvh, hd)
+        scores = torch.einsum("bqmgd,bkgd->bmgqk", q.float(), k.float())
+        scores = scores * hd ** -0.5
+        mask = torch.tril(torch.ones(t, t, dtype=torch.bool, device=x.device))
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bmgqk,bkgd->bqmgd", probs, v).reshape(b, t, d)
+        return out @ block["wo"]
+
+    def apply(self, params, tokens, moe_overrides: Optional[dict] = None):
+        """tokens [B, T] -> (logits [B, T, V], l_aux_sum). Inference only."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, t = tokens.shape
+        x = (params["embed"][tokens] + params["pos"][None, :t]).to(cfg.dtype)
+        l_aux_sum = torch.zeros((), device=self.device)
+        ov = dict(moe_overrides or {})
+        for i, block in enumerate(params["blocks"]):
+            x = x + self._attn(block, self._ln(block["ln1"], x))
+            h = self._ln(block["ln2"], x)
+            if i in self.moe_layers:
+                out, l_aux = self._moe_call(i, block["moe"], h, **ov)
+                x = x + out
+                l_aux_sum = l_aux_sum + l_aux.float()
+            else:
+                x = x + self._ffn(block["ffn"], h)
+        return self._logits(params, self._ln(params["final_ln"], x)), \
+            l_aux_sum
+
+    # ------------------------------------------------------------------
+    # Incremental decode (KV cache): the serving path
+    # ------------------------------------------------------------------
+
+    def init_cache(self, batch: int):
+        """Per-block KV cache for `batch` rows (module doc), on the
+        model's device."""
+        cfg = self.cfg
+        kvh, hd = self._kvh, cfg.model_dim // cfg.num_heads
+        dev = self.device
+        if cfg.kv_bits == 0:
+            return [{kk: torch.zeros(batch, cfg.max_len, kvh * hd,
+                                     dtype=cfg.dtype, device=dev)
+                     for kk in ("k", "v")} for _ in range(cfg.num_layers)]
+        width = kvh * hd if cfg.kv_bits == 8 else kvh * hd // 2
+        return [{"k": torch.zeros(batch, cfg.max_len, width,
+                                  dtype=torch.int8, device=dev),
+                 "v": torch.zeros(batch, cfg.max_len, width,
+                                  dtype=torch.int8, device=dev),
+                 "k_s": torch.ones(batch, kvh, cfg.max_len, device=dev),
+                 "v_s": torch.ones(batch, kvh, cfg.max_len, device=dev)}
+                for _ in range(cfg.num_layers)]
+
+    @staticmethod
+    def _kv_quantize(x):
+        """Per-(row, head) symmetric INT8: x [N, kvh, hd] -> (int8 values,
+        f32 scales [N, kvh])."""
+        xf = x.float()
+        s = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-10)
+        q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+        return q.to(torch.int8), s
+
+    @staticmethod
+    def _kv_quantize4(x):
+        """Per-(row, head) symmetric INT4, nibble-packed: x [N, kvh, hd] ->
+        (int8 [N, kvh*hd/2], f32 scales [N, kvh]) in the split-half layout
+        (byte c = flat value c | flat value c + D/2 << 4)."""
+        n = x.shape[0]
+        xf = x.float()
+        s = torch.clamp(xf.abs().amax(dim=-1) / 7.0, min=1e-10)
+        q = torch.clamp(torch.round(xf / s[..., None]), -7, 7).to(
+            torch.int32).reshape(n, -1)
+        dp = q.shape[-1] // 2
+        packed = (q[:, :dp] & 0xF) | ((q[:, dp:] & 0xF) << 4)   # 0 .. 255
+        return ((packed + 128) % 256 - 128).to(torch.int8), s
+
+    @staticmethod
+    def _kv_dequant4(packed, scales, kvh, hd, read_len):
+        """Inverse of `_kv_quantize4` over a cache window: packed
+        [B, T, D/2] + scales [B, kvh, T] -> [B, read_len, kvh, hd] f32."""
+        flat = unpack_int4(packed[:, :read_len]).float()
+        vals = flat.reshape(*flat.shape[:2], kvh, hd)
+        return vals * scales[:, :, :read_len].transpose(1, 2)[..., None]
+
+    def _stored(self, x):
+        """K or V rows [N, kvh, hd] in the cache's stored form:
+        (values [N, row], scales [N, kvh] or None)."""
+        n = x.shape[0]
+        if self.cfg.kv_bits == 8:
+            q, s = self._kv_quantize(x)
+            return q.reshape(n, -1), s
+        if self.cfg.kv_bits == 4:
+            return self._kv_quantize4(x)
+        return x.reshape(n, -1).contiguous(), None
+
+    def _attn_step(self, block, x, layer_cache, pos, attn_len=None):
+        """One-token attention: x [B, d] at positions pos [B] over the
+        layer's cache. The cache is not written here: K6 takes the fresh
+        K/V row directly, and the row comes back as the pending write,
+        {"rows": (k, v), "cols": (k_scale, v_scale) or None}.
+
+        attn_len bounds the cache read to the first attn_len positions,
+        exact while every pos < attn_len."""
+        cfg = self.cfg
+        b, d = x.shape
+        q, k, v = self._split_qkv(x @ block["wqkv"], (b,))
+        kq, ks = self._stored(k)
+        vq, vs = self._stored(v)
+        quant = cfg.kv_bits != 0
+        out = decode_attn(
+            q.contiguous(), layer_cache["k"], layer_cache["v"], pos,
+            k_scale=layer_cache.get("k_s"), v_scale=layer_cache.get("v_s"),
+            attn_len=attn_len, kv_bits=cfg.kv_bits or 8, k_new=kq, v_new=vq,
+            k_new_scale=ks, v_new_scale=vs)
+        pending = {"rows": (kq, vq), "cols": (ks, vs) if quant else None}
+        return out.reshape(b, d) @ block["wo"], pending
+
+    def _flush_kv_writes(self, cache, pendings, pos):
+        """Every block's deferred cache write in one K8 launch: 2L row
+        caches and, for a quantized cache, 2L scale columns."""
+        row_caches, rows, col_caches, cols = [], [], [], []
+        for lc, pend in zip(cache, pendings):
+            row_caches += [lc["k"], lc["v"]]
+            rows += list(pend["rows"])
+            if pend["cols"] is not None:
+                col_caches += [lc["k_s"], lc["v_s"]]
+                cols += list(pend["cols"])
+        write_step(row_caches, rows, pos, col_caches=col_caches, cols=cols)
+        return cache
+
+    def apply_decode(self, params, tokens, cache, pos,
+                     moe_overrides: Optional[dict] = None,
+                     capacity_probe: bool = False,
+                     attn_len: Optional[int] = None):
+        """One decode step: tokens [B] at positions pos [B].
+
+        Returns (logits [B, V], cache, l_aux_sum); the cache is updated in
+        place. Numerically the computation of `apply` at those positions.
+        capacity_probe=True also returns a device int scalar: the most
+        tokens any MoE layer's routing of this step sent to one expert
+        (the dropless capacity the step needed). A position past max_len
+        (an idle engine slot) reads the last positional row and writes
+        nothing, as the JAX model's gather and scatter do."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        pos = torch.as_tensor(pos, device=self.device)
+        x = (params["embed"][tokens]
+             + params["pos"][pos.long().clamp(0, cfg.max_len - 1)]
+             ).to(cfg.dtype)
+        l_aux_sum = torch.zeros((), device=self.device)
+        ov = dict(moe_overrides or {})
+        needed_max = torch.zeros((), dtype=torch.long, device=self.device)
+        pendings = []
+        for i, block in enumerate(params["blocks"]):
+            a, pend = self._attn_step(block, self._ln(block["ln1"], x),
+                                      cache[i], pos, attn_len=attn_len)
+            pendings.append(pend)
+            x = x + a
+            h = self._ln(block["ln2"], x)
+            if i in self.moe_layers:
+                if capacity_probe:
+                    probe = self.moe_layers[i].count_needed_traceable(
+                        top_k=ov.get("top_k"))
+                    needed_max = torch.maximum(
+                        needed_max, probe(block["moe"], h).long())
+                out, l_aux = self._moe_call(i, block["moe"], h, **ov)
+                x = x + out
+                l_aux_sum = l_aux_sum + l_aux.float()
+            else:
+                x = x + self._ffn(block["ffn"], h)
+        self._flush_kv_writes(cache, pendings, pos)
+        logits = self._logits(params, self._ln(params["final_ln"], x))
+        if capacity_probe:
+            return logits, cache, l_aux_sum, needed_max
+        return logits, cache, l_aux_sum
+
+    def prefill(self, params, prompts, cache,
+                moe_overrides: Optional[dict] = None, parallel: bool = True,
+                prompt_lens=None):
+        """Write prompts [B, Tp] into the cache (in place); returns
+        (logits_last [B, V], cache), logits_last predicting the token
+        after each prompt.
+
+        prompt_lens [B] (parallel path only): each row's true prompt
+        length when Tp is a padded length bucket; logits_last is then taken
+        at prompt_lens[b] - 1. The padded tail's cache cells are written
+        but masked out of every later read until decode rewrites them.
+
+        parallel=True runs `_prefill_parallel` (chunks of 128 positions,
+        one K7 call per block and chunk); parallel=False runs the loop of
+        `apply_decode` over the prompt, kept as the oracle."""
+        prompts = torch.as_tensor(prompts, device=self.device).long()
+        if parallel:
+            return self._prefill_parallel(params, prompts, cache,
+                                          moe_overrides,
+                                          prompt_lens=prompt_lens)
+        if prompt_lens is not None:
+            raise NotImplementedError(
+                "prompt_lens requires the parallel prefill path (the loop "
+                "oracle returns only the final step's logits)")
+        b, tp = prompts.shape
+        logits = None
+        for t in range(tp):
+            logits, cache, _ = self.apply_decode(
+                params, prompts[:, t], cache,
+                torch.full((b,), t, dtype=torch.int32, device=self.device),
+                moe_overrides=moe_overrides, attn_len=tp)
+        return logits, cache
+
+    def _write_chunk(self, lc, k, v, start):
+        """A prompt chunk's K/V rows [b, tc, kvh, hd] into the cache at
+        positions start.., in the stored form."""
+        b, tc, kvh, _ = k.shape
+        for name, x in (("k", k), ("v", v)):
+            vals, s = self._stored(x.reshape(b * tc, kvh, -1))
+            lc[name][:, start:start + tc] = vals.reshape(b, tc, -1)
+            if s is not None:
+                lc[name + "_s"][:, :, start:start + tc] = \
+                    s.reshape(b, tc, kvh).transpose(1, 2)
+
+    def _prefill_chunk(self, params, x, cache, start, read_len, ov):
+        """One prompt chunk x [b, tc, d] at positions start..: every block
+        writes the chunk's K/V, then attends over the first read_len cache
+        positions with K7. Returns the chunk's final hidden states."""
+        cfg = self.cfg
+        b, tc, d = x.shape
+        for i, block in enumerate(params["blocks"]):
+            q, k, v = self._split_qkv(
+                self._ln(block["ln1"], x) @ block["wqkv"], (b, tc))
+            lc = cache[i]
+            self._write_chunk(lc, k, v, start)
+            a = prefill_attn(q.contiguous(), lc["k"], lc["v"], start,
+                             k_scale=lc.get("k_s"), v_scale=lc.get("v_s"),
+                             attn_len=read_len, kv_bits=cfg.kv_bits or 8)
+            x = x + a.reshape(b, tc, d) @ block["wo"]
+            h = self._ln(block["ln2"], x)
+            if i in self.moe_layers:
+                x = x + self._moe_call(i, block["moe"], h, **ov)[0]
+            else:
+                x = x + self._ffn(block["ffn"], h)
+        return x
+
+    def _prefill_parallel(self, params, prompts, cache, moe_overrides,
+                          tc: int = 128, prompt_lens=None):
+        """Chunked-parallel prefill: chunks of `tc` positions, each one
+        causal attention pass per block (its queries against the cache
+        written so far and itself) and one MoE dispatch over b*tc tokens
+        at the content-independent lossless capacity b*tc, so a caller's
+        decode-scale capacity_override never mis-sizes the prompt routing.
+
+        The chunks run in at most 4 segments; a segment's chunks read a
+        window of the cache that covers its last chunk, rounded up to 128
+        positions (the JAX model's segmented windows,
+        tutel_tpu/models/transformer.py:1308-1331)."""
+        cfg = self.cfg
+        b, tp = prompts.shape
+        tc = max(1, min(tc, tp))
+        while -(-tp // tc) * tc > cfg.max_len:      # stay inside the cache
+            tc = max(1, tc // 2)
+        tp_pad = -(-tp // tc) * tc
+        n_chunks = tp_pad // tc
+        prompts_p = torch.nn.functional.pad(prompts, (0, tp_pad - tp))
+        x_all = (params["embed"][prompts_p]
+                 + params["pos"][None, :tp_pad]).to(cfg.dtype)
+        ov = dict(moe_overrides or {})
+        ov.pop("capacity_override", None)
+        if "capacity_factor" not in ov:
+            ov["capacity_override"] = b * tc
+        nseg = min(4, n_chunks)
+        hs, ci0 = [], 0
+        for si in range(nseg):
+            ce = n_chunks * (si + 1) // nseg
+            window = min(tp_pad, -(-(ce * tc) // 128) * 128)
+            for ci in range(ci0, ce):
+                start = ci * tc
+                hs.append(self._prefill_chunk(
+                    params, x_all[:, start:start + tc], cache, start, window,
+                    ov))
+            ci0 = ce
+        if prompt_lens is None:
+            hl = hs[(tp - 1) // tc][:, (tp - 1) % tc]
+        else:
+            h_all = torch.cat(hs, dim=1)                     # [b, tp_pad, d]
+            idx = torch.as_tensor(prompt_lens, device=self.device).long()
+            idx = (idx - 1).clamp(0, tp_pad - 1)
+            hl = h_all[torch.arange(b, device=self.device), idx]
+        return self._logits(params, self._ln(params["final_ln"], hl)), cache

@@ -1,4 +1,7 @@
-"""Continuous-batching MoE decode engine (counterpart: tutel_tpu/serving.py:39-523).
+"""Continuous-batching decode engines (counterpart: tutel_tpu/serving.py).
+
+`MoeDecodeEngine` (tutel_tpu/serving.py:39-523) drives one MoE layer over
+embedding vectors:
 
   * a slot buffer [max_batch, model_dim] of active sequences on the
     layer's device; requests join and leave between chunks. Admissions are
@@ -21,7 +24,17 @@ Quantized expert params are fused into the single-kernel weight stream
 on construction (`auto_fuse=True`), so a decode step runs the fused
 kernel K2; with `auto_fuse=False` it runs K1 twice.
 Inference routing is deterministic, so unlike the JAX engine no key chain
-is carried. `LmDecodeEngine` is a later slice.
+is carried.
+
+`LmDecodeEngine` (tutel_tpu/serving.py:526-1060) serves a whole
+`models.TransformerMoE`: prompts in, tokens out. A [max_batch]-slot KV
+cache; admissions prefill their prompts (grouped by padded length) and
+join; chunks of decode steps run over every slot, with greedy or sampled
+token selection and optional speculative MoE capacity with replay. Each
+decode step runs kernels K6 and K8, each prefill chunk K7, and the INT4
+MoE blocks K2. The caches are updated in place. The JAX engine's jit
+caches and XLA compiler options (`_chunk_compiler_options`) have no
+counterpart in eager PyTorch.
 """
 
 import dataclasses
@@ -294,3 +307,351 @@ class MoeDecodeEngine:
             finals.update(self.step_chunk(k))
             steps_done += k
         return finals
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LmRequest:
+    uid: Any
+    prompt: Any                   # [Tp] int token ids
+    max_new_tokens: int
+    stop_token: Optional[int] = None   # retire on emitting this id (kept
+    #   in the output; not seen under fetch=False chunks)
+
+
+def _make_token_selector(sampler, generator):
+    """Token selection fn(logits [B, V]) -> [B] long.
+
+    sampler None/{} or temperature 0 = greedy argmax. Otherwise a dict of
+    temperature, top_k (keep the k highest logits) and top_p (keep the
+    smallest prefix of the sorted distribution whose mass reaches p; the
+    top token is always kept), composed in that order, then a
+    categorical draw from `generator`."""
+    t = float((sampler or {}).get("temperature", 1.0))
+    if not sampler or t == 0.0:
+        return lambda logits: torch.argmax(logits, dim=-1)
+    top_k = int(sampler.get("top_k", 0))
+    top_p = float(sampler.get("top_p", 0.0))
+
+    def select(logits):
+        lg = logits.float() / t
+        if 0 < top_k < lg.shape[-1]:
+            kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+            lg = lg.masked_fill(lg < kth, float("-inf"))
+        if top_p > 0.0:
+            srt, order = torch.sort(lg, dim=-1, descending=True)
+            p = torch.softmax(srt, dim=-1)
+            keep = (torch.cumsum(p, dim=-1) - p) < top_p
+            mask = torch.zeros_like(keep).scatter(-1, order, keep)
+            lg = lg.masked_fill(~mask, float("-inf"))
+        probs = torch.softmax(lg, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    return select
+
+
+class LmDecodeEngine:
+    """Continuous-batching token generation over a TransformerMoE.
+
+    sampler: None = greedy (the same tokens as re-running the full
+    forward); or a dict with temperature / top_k / top_p / seed (see
+    `_make_token_selector`). Sampled runs are deterministic for a seed and
+    an admission sequence.
+
+    speculative_capacity > 0 runs decode chunks at capacity margin x the
+    average per-expert load, with a needed-capacity probe per step; a
+    chunk whose routing overflowed is replayed at the observed capacity,
+    so fetched chunks stay dropless. The replay restarts from the
+    pre-chunk tokens and positions over the post-chunk cache: a chunk only
+    writes positions >= each row's pos, and every such cell is masked
+    until the step that rewrites it.
+    """
+
+    def __init__(self, model, params, max_batch: int,
+                 moe_overrides: Optional[dict] = None,
+                 auto_fuse: bool = True,
+                 sampler: Optional[dict] = None,
+                 speculative_capacity: float = 0.0,
+                 capacity_bucket: int = 8,
+                 attn_bucket: int = 64,
+                 prefill_bucket: int = 64):
+        self.model = model
+        if auto_fuse:
+            params = dict(params)
+            params["blocks"] = [
+                {**blk, "moe": _maybe_fuse_expert_stream(blk["moe"])}
+                if "moe" in blk else blk for blk in params["blocks"]]
+        self.params = params
+        self.max_batch = int(max_batch)
+        self.device = model.device
+        self.moe_overrides = dict(moe_overrides or {})
+        self.sampler = dict(sampler or {})
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(self.sampler.get("seed", 0)))
+        self._select = _make_token_selector(self.sampler, self._gen)
+        self.cache = model.init_cache(self.max_batch)
+        self._tok = torch.zeros(self.max_batch, dtype=torch.long,
+                                device=self.device)
+        self._pos = torch.zeros(self.max_batch, dtype=torch.int32,
+                                device=self.device)
+        self._slots: List[Optional[LmRequest]] = [None] * self.max_batch
+        self._free = list(range(self.max_batch))[::-1]
+        self._remaining = [0] * self.max_batch
+        self._host_pos = [0] * self.max_batch
+        self._staged: List[Any] = []   # (slot, LmRequest)
+        self._generated: Dict[Any, List[int]] = {}
+        self.stats = {"steps": 0, "tokens": 0, "joined": 0, "finished": 0,
+                      "spec_retries": 0}
+        self.capacity_bucket = max(int(capacity_bucket), 1)
+        self.speculative_capacity = float(speculative_capacity or 0)
+        if not model.moe_layers:
+            self.speculative_capacity = 0.0
+        # observed needs are shared by the engines of one model: a hint
+        # only raises the speculated capacity
+        hints = getattr(model, "_serving_spec_hints", None)
+        if hints is None:
+            hints = model._serving_spec_hints = {}
+        self._spec_hints = hints
+        self._hint_key = (tuple(sorted(self.moe_overrides.items())),
+                          self.max_batch)
+        self._spec_over = None         # device bool: a fetch=False overflow
+        # decode chunks read only the cache positions any live row can
+        # reach, rounded up to attn_bucket (0 = always max_len)
+        self.attn_bucket = int(attn_bucket)
+        # admissions group by prompt length rounded up to prefill_bucket
+        # (0 = exact length)
+        self.prefill_bucket = int(prefill_bucket)
+
+    @property
+    def active(self) -> int:
+        return self.max_batch - len(self._free)
+
+    def try_add(self, request: LmRequest) -> bool:
+        """Admit a request if a slot is free; it prefills at the next
+        chunk."""
+        if not self._free:
+            return False
+        tp = len(request.prompt)
+        budget = self.model.cfg.max_len - tp - 1
+        if budget <= 0:
+            raise ValueError(f"prompt length {tp} leaves no room under "
+                             f"max_len={self.model.cfg.max_len}")
+        slot = self._free.pop()
+        self._slots[slot] = request
+        self._remaining[slot] = min(request.max_new_tokens, budget)
+        self._staged.append((slot, request))
+        self._generated[request.uid] = []
+        self.stats["joined"] += 1
+        return True
+
+    # -- prefill (admission flush) --------------------------------------
+
+    def _flush_admissions(self):
+        """One prefill per prompt-length bucket, into a fresh cache of the
+        group's rows, then copied into the engine cache's slots. Mixed
+        true lengths inside a bucket ride the model's prompt_lens."""
+        if not self._staged:
+            return
+        q = self.prefill_bucket
+        if q > 0 and "capacity_factor" in self.moe_overrides:
+            # a capacity-limited prefill lets pad tokens compete with
+            # real ones for expert slots: group by exact length
+            q = 0
+        max_len = self.model.cfg.max_len
+        by_len: Dict[int, List[Any]] = {}
+        for slot, req in self._staged:
+            tp = len(req.prompt)
+            bl = min(-(-tp // q) * q, max_len) if q > 0 else tp
+            by_len.setdefault(bl, []).append((slot, req))
+        self._staged = []
+        for bl, group in by_len.items():
+            lens = [len(r.prompt) for _, r in group]
+            prompts = np.stack([np.pad(np.asarray(r.prompt, np.int64),
+                                       (0, bl - len(r.prompt)))
+                                for _, r in group])
+            prompts = torch.from_numpy(prompts).to(self.device)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=self.device)
+            bucketed = q > 0 and any(n != bl for n in lens)
+            logits, gc = self.model.prefill(
+                self.params, prompts, self.model.init_cache(len(group)),
+                moe_overrides=self.moe_overrides,
+                prompt_lens=lens_t if bucketed else None)
+            first = self._select(logits)
+            slots = torch.tensor([s for s, _ in group], device=self.device)
+            for lc, glc in zip(self.cache, gc):
+                for kk in lc:
+                    lc[kk][slots] = glc[kk]
+            self._tok[slots] = first
+            self._pos[slots] = lens_t
+            for (slot, req), n, tok in zip(group, lens, first.tolist()):
+                self._host_pos[slot] = n
+                self._generated[req.uid].append(tok)
+                self._remaining[slot] -= 1
+                if req.stop_token is not None and tok == req.stop_token:
+                    self._remaining[slot] = 0    # retires at the next sweep
+
+    # -- chunked decode -------------------------------------------------
+
+    def _decode_chunk(self, n_steps, cap=None, with_probe=False,
+                      attn_len=None):
+        """n_steps decode steps from the engine's tokens and positions.
+        Returns (tok, pos, toks [n_steps, B], max needed capacity or
+        None); self._tok / self._pos are not modified, so a chunk can be
+        replayed."""
+        ov = self.moe_overrides
+        if cap is not None:
+            ov = {**ov, "capacity_override": cap}
+        tok, pos, toks, mx = self._tok, self._pos, [], None
+        for _ in range(n_steps):
+            out = self.model.apply_decode(
+                self.params, tok, self.cache, pos, moe_overrides=ov,
+                capacity_probe=with_probe, attn_len=attn_len)
+            if with_probe:
+                mx = out[3] if mx is None else torch.maximum(mx, out[3])
+            tok = self._select(out[0])
+            toks.append(tok)
+            pos = pos + 1
+        return tok, pos, torch.stack(toks), mx
+
+    def _attn_len(self, n_steps: int) -> Optional[int]:
+        """Cache positions the next n_steps can read: the largest live
+        position plus the chunk, rounded up to attn_bucket; None (all of
+        max_len) when disabled or when that reaches max_len. Idle slots
+        decode junk that is never read back, so only live ones count."""
+        if self.attn_bucket <= 0:
+            return None
+        mp = max((self._host_pos[s] for s, r in enumerate(self._slots)
+                  if r is not None), default=0)
+        b = self.attn_bucket
+        t = min((mp + n_steps + b - 1) // b * b, self.model.cfg.max_len)
+        return None if t >= self.model.cfg.max_len else t
+
+    def _lm_spec_cap(self) -> int:
+        """Speculated dropless capacity of a decode step: margin x the
+        average per-expert load over the whole slot buffer (every slot
+        routes, occupied or not), raised to the largest observed need,
+        bucket-aligned, within [bucket, max_batch]."""
+        tk = self.moe_overrides.get("top_k") or self.model.cfg.top_k
+        e = min(lay.num_global_experts
+                for lay in self.model.moe_layers.values())
+        tk = min(int(tk), e)
+        avg = -(-tk * self.max_batch // e)
+        cap = max(int(avg * self.speculative_capacity),
+                  self._spec_hints.get(self._hint_key, 0))
+        cap = -(-cap // self.capacity_bucket) * self.capacity_bucket
+        return max(self.capacity_bucket, min(cap, self.max_batch))
+
+    @property
+    def spec_overflow(self) -> bool:
+        """True if a fetch=False speculative chunk overflowed its buffer
+        (its tokens dropped rows); fetched chunks replay and stay
+        dropless."""
+        return bool(self._spec_over) if self._spec_over is not None \
+            else False
+
+    def step_chunk(self, n_steps: int, fetch: bool = True
+                   ) -> Dict[Any, List[int]]:
+        """Decode up to `n_steps` tokens for every active slot (never past
+        the smallest remaining budget). Returns {uid: new tokens}.
+
+        fetch=False skips the device-to-host copy of the tokens and
+        returns {}: the cache and positions advance, but the tokens are
+        not recorded (a timing mode). A speculative chunk then cannot
+        replay: check `spec_overflow` afterwards."""
+        self._flush_admissions()
+        for slot, req in enumerate(self._slots):
+            if req is not None and self._remaining[slot] <= 0:
+                self._slots[slot] = None     # budget spent by the prefill
+                self._free.append(slot)
+                self.stats["finished"] += 1
+        if self.active == 0:
+            return {}
+        n_steps = max(1, min(n_steps, *[self._remaining[s] for s, r in
+                                        enumerate(self._slots)
+                                        if r is not None]))
+        attn_len = self._attn_len(n_steps)
+        toks_np = None
+        if self.speculative_capacity > 0:
+            cap = self._lm_spec_cap()
+            gen_state = self._gen.get_state()
+            while True:
+                tok, pos, toks, mx = self._decode_chunk(
+                    n_steps, cap=cap, with_probe=True, attn_len=attn_len)
+                if cap >= self.max_batch:
+                    break                          # lossless by construction
+                if not fetch:
+                    over = mx > cap
+                    self._spec_over = over if self._spec_over is None \
+                        else torch.logical_or(self._spec_over, over)
+                    break
+                toks_np = toks.cpu().numpy()     # the overflow check rides
+                needed = int(mx)                 # the fetch of the tokens
+                self._spec_hints[self._hint_key] = max(
+                    self._spec_hints.get(self._hint_key, 0), needed)
+                if needed <= cap:
+                    break
+                self.stats["spec_retries"] += 1
+                toks_np = None
+                self._gen.set_state(gen_state)   # replay the same draws
+                cap = min(self.max_batch,
+                          -(-needed // self.capacity_bucket)
+                          * self.capacity_bucket)
+        else:
+            tok, pos, toks, _ = self._decode_chunk(n_steps, attn_len=attn_len)
+        self._tok, self._pos = tok, pos
+        for slot, req in enumerate(self._slots):
+            if req is not None:
+                self._host_pos[slot] += n_steps
+        if not fetch:
+            for slot, req in enumerate(self._slots):
+                if req is None:
+                    continue
+                self._remaining[slot] -= n_steps
+                self.stats["tokens"] += n_steps
+                if self._remaining[slot] <= 0:
+                    self._slots[slot] = None
+                    self._free.append(slot)
+                    self.stats["finished"] += 1
+            self.stats["steps"] += n_steps
+            return {}
+        if toks_np is None:
+            toks_np = toks.cpu().numpy()          # [n_steps, B], one copy
+        results: Dict[Any, List[int]] = {}
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            new = toks_np[:, slot].tolist()
+            stopped = False
+            if req.stop_token is not None and req.stop_token in new:
+                # keep up to and including the stop token
+                new = new[:new.index(req.stop_token) + 1]
+                stopped = True
+            self._generated[req.uid].extend(new)
+            results[req.uid] = new
+            self._remaining[slot] -= n_steps
+            self.stats["tokens"] += len(new)
+            if stopped or self._remaining[slot] <= 0:
+                self._slots[slot] = None
+                self._free.append(slot)
+                self.stats["finished"] += 1
+        self.stats["steps"] += n_steps
+        return results
+
+    def run(self, requests: List[LmRequest], chunk: int = 8,
+            max_steps: int = 100_000) -> Dict[Any, np.ndarray]:
+        """Drive until every request finishes; returns each uid's generated
+        tokens (prompt not included)."""
+        pending = list(requests)[::-1]
+        steps = 0
+        while steps < max_steps:
+            while pending and self.try_add(pending[-1]):
+                pending.pop()
+            if self.active == 0 and not pending:
+                break
+            self.step_chunk(chunk)
+            steps += chunk
+        return {uid: np.asarray(toks, np.int32)
+                for uid, toks in self._generated.items()}
