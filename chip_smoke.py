@@ -8,19 +8,28 @@ Run from the root of a checkout, with no arguments:
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from csrc/*.cu with nvcc, all at once, timed;
-  3. holds each kernel (K1 grouped_gemm_quant, K2 fused_ffn_quant) against
-     its plain PyTorch twin on the card in bfloat16, at the decode server's
-     shape (128 experts, 2048 x 2048, INT4, capacity 32, the row counts of
-     512 routed tokens), at the same width with every row live, at a
-     K < H shape, and at the LM server's expert shapes (a decode step and
-     a prefill chunk of capacity 8192), and times kernel, twin and a bf16
-     torch.bmm yardstick with CUDA events;
+  3. holds each expert kernel against its plain PyTorch twin on the card
+     in bfloat16, and times kernel, twin and a bf16 torch.bmm yardstick
+     over the dequantized weights with CUDA events: K1 grouped_gemm_quant
+     and K2 fused_ffn_quant at the decode server's shape (128 experts,
+     2048 x 2048, INT4, capacity 32, the row counts of 512 routed tokens),
+     at the same width with every row live, at a K < H shape, and at the
+     LM server's expert shapes (a decode step and a prefill chunk of
+     capacity 8192); K5 grouped_gemm_w8a8 (fc1 as one GEMM) and K3
+     fused_ffn_w8a8 at the decode shape in INT4 and INT8, with every row
+     live, and at K < H in INT8 with gelu; K4 fused_swiglu_quant at the
+     SwiGLU LM's expert shapes (32 experts, 1024 x 2048 x 1024, INT4, silu;
+     a decode step and a prefill chunk of 16,384 routed rows);
   4. serves 512 requests of 8-32 decode steps through MoeDecodeEngine at
      128 experts x 2048 x 2048, top-2, dropless, INT4, bfloat16, batch 256,
      residual_norm (the shape of benchmarks/bench_dropless_decode.py), with
      the fused kernel (auto_fuse=True), then a shorter run on the two-call
-     path (auto_fuse=False), counting each kernel's launches in each run;
-  5. checks a small engine on the card against the same engine on the CPU;
+     path (auto_fuse=False); then both again with activation_bits=8 (W4A8,
+     the w4a8 rows of benchmarks/round5_tpu_sweep.sh), whose fused run may
+     launch only K3 and whose two-call run only K5; each run counts every
+     kernel's launches;
+  5. checks small engines on the card against the same engines on the CPU
+     (INT4 weight-only within 1e-4, W4A8 within 2e-3);
   6. holds the attention kernels K6 decode_attn and K7 prefill_attn and the
      KV-cache write K8 against their twins at the LM server's shapes (64
      rows, 8 heads of 128, 2 KV groups, cache 2048; K6 with fresh rows over
@@ -35,10 +44,13 @@ In order, it
      round-5 2k serving configuration of benchmarks/bench_lm_serving.py),
      after a short warm-up run, counting each kernel's launches; then
      traces one decode chunk with torch.profiler (device busy share, the
-     kernels with the most device time);
-  8. checks a small LM engine on the card against the same engine on the
-     CPU (float32, INT8 and float caches): the same greedy tokens, and
-     apply_decode logits within 1e-4;
+     kernels with the most device time); then the same for the same LM
+     with SwiGLU experts (expert_type="llama_ffn", 32 INT4 experts of
+     2048), whose serve may launch only K4, K6, K7 and K8;
+  8. checks small LM engines on the card against the same engines on the
+     CPU (float32; two-layer experts with INT8 and float caches, SwiGLU
+     experts with an INT8 cache): the same greedy tokens, and apply_decode
+     logits within 1e-4;
   9. prints one JSON line per check and phase, the {"kernels": [...]} line,
      and last {"ok": true, "device": {...}}.
 
@@ -62,7 +74,7 @@ from tutel_tpu_torch import moe  # noqa: E402
 from tutel_tpu_torch.csrc import build  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoE  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoEConfig  # noqa: E402
-from tutel_tpu_torch.ops import activations, fused_ffn, quant  # noqa: E402
+from tutel_tpu_torch.ops import activations, fused_ffn, quant, w8a8  # noqa: E402
 from tutel_tpu_torch.ops import decode_attn as da  # noqa: E402
 from tutel_tpu_torch.ops import grouped_gemm_quant as gq  # noqa: E402
 from tutel_tpu_torch.ops import kv_write  # noqa: E402
@@ -72,7 +84,11 @@ from tutel_tpu_torch.serving import MoeDecodeEngine, Request  # noqa: E402
 SEED = 0
 BF16_TOL = 2e-2            # max |kernel - twin| / max |twin|, bfloat16
 SMALL_TOL = 1e-4           # GPU engine vs CPU engine, float32
+# the W4A8 engine: a last-bit difference of a state between the devices
+# can move one int8 activation of a later step by one quantization step
+W8A8_TOL = 2e-3
 BF16_PEAK = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
+INT8_PEAK = 1979e12        # H100 SXM dense int8 tensor-core OP/s
 REPS = 20
 
 
@@ -114,6 +130,15 @@ def errors(got, ref, counts):
     return float(diff), float(diff / scale)
 
 
+def bound(moved, ops, bandwidth, peak=BF16_PEAK):
+    """The least time for `moved` bytes and `ops` operations, and which of
+    the two sets it."""
+    by_bytes = moved / bandwidth >= ops / peak
+    return {"bytes": moved, "ops": ops,
+            "bound_ms": 1e3 * max(moved / bandwidth, ops / peak),
+            "bound_by": "bytes" if by_bytes else "operations"}
+
+
 def check_kernels(shape, bandwidth):
     """Both kernels against their twins at one shape; returns two dicts."""
     name, e, c, k, h, n, rows, bias, act = shape
@@ -148,10 +173,7 @@ def check_kernels(shape, bandwidth):
         "plain_ms": median_ms(
             lambda: gq.grouped_gemm_quant_reference(x, w1, counts)),
         "bf16_bmm_ms": median_ms(lambda: torch.bmm(x, w1_dense)),
-        "bytes": moved, "ops": ops,
-        "bound_ms": 1e3 * max(moved / bandwidth, ops / BF16_PEAK),
-        "bound_by": "bytes" if moved / bandwidth >= ops / BF16_PEAK
-        else "operations"})
+        **bound(moved, ops, bandwidth)})
     del w1_dense
 
     # K2: act(x @ W1 + b1) @ W2 + b2
@@ -176,15 +198,120 @@ def check_kernels(shape, bandwidth):
             x, stream, counts, act_fn)),
         "bf16_bmm_ms": median_ms(lambda: torch.bmm(
             act_fn(torch.bmm(x, w1_dense)), w2_dense)),
-        "bytes": moved, "ops": ops,
-        "bound_ms": 1e3 * max(moved / bandwidth, ops / BF16_PEAK),
-        "bound_by": "bytes" if moved / bandwidth >= ops / BF16_PEAK
-        else "operations"})
+        **bound(moved, ops, bandwidth)})
     for r in out:
         if not r["max_rel_err"] <= BF16_TOL:
             raise RuntimeError(f"{r['name']} at {name} disagrees with its "
                                f"twin: {r['max_rel_err']} > {BF16_TOL}")
     return out
+
+
+def check_w8a8_kernels(shape, bandwidth):
+    """K5 (fc1 as one GEMM) and K3 (the whole FFN) against their twins at
+    one shape; returns two dicts. Integer products are held to the card's
+    int8 peak; the bytes that bound them are the live experts' weights."""
+    name, e, c, k, h, n, rows, bias, act, bits = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    w1 = quant.quantize(torch.randn(e, k, h, generator=g, device=dev) * 0.02,
+                        bits)
+    w2 = quant.quantize(torch.randn(e, h, n, generator=g, device=dev) * 0.02,
+                        bits)
+    b1 = torch.randn(e, h, generator=g, device=dev) * 0.1 if bias else None
+    b2 = torch.randn(e, n, generator=g, device=dev) * 0.1 if bias else None
+    stream = fused_ffn.prepare_fused_ffn(w1, w2, b1, b2)
+    x = torch.randn(e, c, k, generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.tensor(rows, dtype=torch.int32, device=dev)
+    live_rows = int(counts.sum())
+    live_experts = int((counts > 0).sum())
+    act_fn = getattr(activations, act)
+    base = {"shape": name, "E": e, "C": c, "K": k, "live_rows": live_rows,
+            "bits": bits, "tol": BF16_TOL}
+    out = []
+
+    got = w8a8.grouped_gemm_w8a8(x, w1, counts)
+    ref = w8a8.grouped_gemm_w8a8_reference(x, w1, counts)
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(got, ref, counts)
+    w1_dense = quant.dequantize(w1, torch.bfloat16)
+    moved = (live_experts * (k * h * bits // 8 + 4 * h) + live_rows * k * 2
+             + e * c * h * 2 + 4 * e)
+    out.append({
+        "name": "grouped_gemm_w8a8", **base, "N": h,
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "ms": median_ms(lambda: w8a8.grouped_gemm_w8a8(x, w1, counts)),
+        "plain_ms": median_ms(
+            lambda: w8a8.grouped_gemm_w8a8_reference(x, w1, counts)),
+        "bf16_bmm_ms": median_ms(lambda: torch.bmm(x, w1_dense)),
+        **bound(moved, 2 * live_rows * k * h, bandwidth, INT8_PEAK)})
+
+    got = fused_ffn.fused_ffn_w8a8(x, stream, counts, activation_fn=act_fn)
+    ref = fused_ffn.fused_ffn_w8a8_reference(x, stream, counts, act_fn)
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(got, ref, counts)
+    w2_dense = quant.dequantize(w2, torch.bfloat16)
+    weights = (k * h + h * n) * bits // 8 + 8 * (h + n)  # values, scale, bias
+    moved = (live_experts * weights + live_rows * k * 2 + e * c * n * 2
+             + 4 * e)
+    out.append({
+        "name": "fused_ffn_w8a8", **base, "H": h, "N": n,
+        "activation": act, "bias": bias,
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "ms": median_ms(lambda: fused_ffn.fused_ffn_w8a8(
+            x, stream, counts, activation_fn=act_fn)),
+        "plain_ms": median_ms(lambda: fused_ffn.fused_ffn_w8a8_reference(
+            x, stream, counts, act_fn)),
+        "bf16_bmm_ms": median_ms(lambda: torch.bmm(
+            act_fn(torch.bmm(x, w1_dense)), w2_dense)),
+        **bound(moved, 2 * live_rows * (k * h + h * n), bandwidth,
+                INT8_PEAK)})
+    for r in out:
+        if not r["max_rel_err"] <= BF16_TOL:
+            raise RuntimeError(f"{r['name']} at {name} disagrees with its "
+                               f"twin: {r['max_rel_err']} > {BF16_TOL}")
+    return out
+
+
+def check_swiglu_kernel(shape, bandwidth):
+    """K4 against its twin at one of the SwiGLU LM's expert shapes. Only
+    the stream's live bytes bound it: the padding of the W1/W2 tiles past
+    K/2 packed rows and of the W3 tiles past N columns is never read."""
+    name, e, c, k, h, n, rows, bits = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    ws = [quant.quantize(torch.randn(*s, generator=g, device=dev) * 0.02,
+                         bits) for s in ((e, k, h), (e, k, h), (e, h, n))]
+    stream = fused_ffn.prepare_fused_swiglu(*ws)
+    x = torch.randn(e, c, k, generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.tensor(rows, dtype=torch.int32, device=dev)
+    live_rows = int(counts.sum())
+    live_experts = int((counts > 0).sum())
+    got = fused_ffn.fused_swiglu_quant(x, stream, counts)
+    ref = fused_ffn.fused_swiglu_quant_reference(x, stream, counts)
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(got, ref, counts)
+    del ref
+    dense = [quant.dequantize(w, torch.bfloat16) for w in ws]
+    weights = (2 * k * h + h * n) * bits // 8 + 4 * (2 * h + n)
+    moved = (live_experts * weights + live_rows * k * 2 + e * c * n * 2
+             + 4 * e)
+    silu = activations.silu
+    r = {"name": "fused_swiglu_quant", "shape": name, "E": e, "C": c, "K": k,
+         "H": h, "N": n, "live_rows": live_rows, "bits": bits,
+         "bw": stream.bw, "max_abs_err": abs_err, "max_rel_err": rel_err,
+         "tol": BF16_TOL,
+         "ms": median_ms(lambda: fused_ffn.fused_swiglu_quant(x, stream,
+                                                              counts)),
+         "plain_ms": median_ms(lambda: fused_ffn.fused_swiglu_quant_reference(
+             x, stream, counts)),
+         "bf16_bmm_ms": median_ms(lambda: torch.bmm(
+             silu(torch.bmm(x, dense[0])) * torch.bmm(x, dense[1]),
+             dense[2])),
+         **bound(moved, 2 * live_rows * (2 * k * h + h * n), bandwidth)}
+    if not rel_err <= BF16_TOL:
+        raise RuntimeError(f"fused_swiglu_quant at {name} disagrees with its "
+                           f"twin: {rel_err} > {BF16_TOL}")
+    return r
 
 
 def serve(layer, params, n_requests, steps, auto_fuse, seed):
@@ -213,12 +340,14 @@ def serve(layer, params, n_requests, steps, auto_fuse, seed):
     return eng, seconds
 
 
-def small_engine_check():
+def small_engine_check(activation_bits=0, tol=SMALL_TOL):
     """A small INT4 engine on the card (kernels) against the same engine on
-    the CPU (plain twins), float32, fused and two-call paths."""
+    the CPU (plain twins), float32, fused and two-call paths; W4A8 with
+    activation_bits=8."""
     kw = dict(gate_type={"type": "top", "k": 2, "capacity_factor": 0.0},
               experts={"type": "ffn", "num_experts_per_device": 8,
-                       "hidden_size_per_expert": 512},
+                       "hidden_size_per_expert": 512,
+                       "activation_bits": activation_bits},
               model_dim=256)
     cpu_layer, gpu_layer = (moe.moe_layer(device=d, **kw)
                             for d in ("cpu", "cuda"))
@@ -242,9 +371,9 @@ def small_engine_check():
             err = float((finals[1][uid].float() - ref).abs().max()
                         / ref.abs().max())
             worst = max(worst, err)
-    if not worst <= SMALL_TOL:
-        raise RuntimeError(f"GPU engine disagrees with the CPU engine: "
-                           f"{worst} > {SMALL_TOL}")
+    if not worst <= tol:
+        raise RuntimeError(f"GPU engine (activation_bits={activation_bits}) "
+                           f"disagrees with the CPU engine: {worst} > {tol}")
     return worst
 
 # -- the LM serving path: K6, K7, K8 ----------------------------------------
@@ -321,10 +450,7 @@ def check_decode_attn(mode, bandwidth, b=ATT["b"]):
          "ms": median_ms(lambda: da.decode_attn(q, k, v, pos, **kw)),
          "plain_ms": median_ms(
              lambda: da.decode_attn_reference(q, k, v, pos, **kw)),
-         "bytes": moved, "ops": ops,
-         "bound_ms": 1e3 * max(moved / bandwidth, ops / BF16_PEAK),
-         "bound_by": "bytes" if moved / bandwidth >= ops / BF16_PEAK
-         else "operations"}
+         **bound(moved, ops, bandwidth)}
     key = "library_ms" if mode == "bfloat16" else "sdpa_dequant_ms"
     r[key] = sdpa_ms(q[:, :, None], kd.repeat(1, mq, 1, 1),
                      vd.repeat(1, mq, 1, 1), mask)
@@ -363,10 +489,7 @@ def check_prefill_attn(mode, bandwidth, tq=128, start=1536):
          "ms": median_ms(lambda: da.prefill_attn(q, k, v, start, **kw)),
          "plain_ms": median_ms(
              lambda: da.prefill_attn_reference(q, k, v, start, **kw)),
-         "bytes": moved, "ops": ops,
-         "bound_ms": 1e3 * max(moved / bandwidth, ops / BF16_PEAK),
-         "bound_by": "bytes" if moved / bandwidth >= ops / BF16_PEAK
-         else "operations"}
+         **bound(moved, ops, bandwidth)}
     key = "library_ms" if mode == "bfloat16" else "sdpa_dequant_ms"
     r[key] = sdpa_ms(q.transpose(1, 2),
                      kd[:, :, :w].repeat(1, mq, 1, 1),
@@ -439,10 +562,30 @@ def lm_params(model, generator):
     return params
 
 
-LM_KERNELS = {"grouped_gemm_quant": gq.grouped_gemm_quant,
-              "fused_ffn_quant": fused_ffn.fused_ffn_quant,
-              "decode_attn": da.decode_attn, "prefill_attn": da.prefill_attn,
-              "kv_write": kv_write.write_step}
+# every ported kernel's wrapper, which counts its launches
+KERNELS = {"grouped_gemm_quant": gq.grouped_gemm_quant,
+           "fused_ffn_quant": fused_ffn.fused_ffn_quant,
+           "fused_ffn_w8a8": fused_ffn.fused_ffn_w8a8,
+           "fused_swiglu_quant": fused_ffn.fused_swiglu_quant,
+           "grouped_gemm_w8a8": w8a8.grouped_gemm_w8a8,
+           "decode_attn": da.decode_attn, "prefill_attn": da.prefill_attn,
+           "kv_write": kv_write.write_step}
+
+
+def reset_launches():
+    for f in KERNELS.values():
+        f.launches = 0
+
+
+def read_launches(path, must):
+    """Every kernel's launches since reset_launches(); raises unless the
+    kernels in `must` ran and no other did."""
+    counts = {k: f.launches for k, f in KERNELS.items()}
+    if any(counts[k] <= 0 for k in must) or any(
+            counts[k] != 0 for k in counts if k not in must):
+        raise RuntimeError(f"the {path} run launched {counts}, expected "
+                           f"only {sorted(must)}")
+    return counts
 
 
 def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed):
@@ -521,6 +664,7 @@ def lm_profile(model, params, seed, steps=16):
     # device time per step of each ported kernel, found by its CUDA symbol
     symbols = {"grouped_gemm_quant": "gmm_quant_kernel",
                "fused_ffn_quant": "fused_ffn_kernel",
+               "fused_swiglu_quant": "fused_swiglu_kernel",
                "decode_attn": "decode_attn_kernel",
                "prefill_attn": "prefill_attn_kernel",
                "kv_write": "kv_write_kernel"}
@@ -534,17 +678,18 @@ def lm_profile(model, params, seed, steps=16):
             "ported_kernels_ms_per_step": ported}
 
 
-def small_lm_check():
+def small_lm_check(expert_type="ffn", kv_modes=(8, 0)):
     """A small LM engine on the card against the same engine on the CPU,
-    float32, with INT8 and float caches: greedy tokens identical, and
-    apply_decode logits (after the same prefill) within SMALL_TOL."""
+    float32, with INT4 experts of `expert_type` and the given caches:
+    greedy tokens identical, and apply_decode logits (after the same
+    prefill) within SMALL_TOL."""
     worst = 0.0
-    for kv_bits in (8, 0):
+    for kv_bits in kv_modes:
         cfg = TransformerMoEConfig(
             vocab_size=97, max_len=256, model_dim=256, num_heads=2,
             num_kv_heads=1, num_layers=2, ffn_hidden=512, moe_every=2,
             num_local_experts=4, top_k=2, capacity_factor=0.0,
-            expert_hidden=512, kv_bits=kv_bits)
+            expert_hidden=512, kv_bits=kv_bits, expert_type=expert_type)
         models = [TransformerMoE(cfg, device=d) for d in ("cpu", "cuda")]
         params = lm_params(models[0], torch.Generator().manual_seed(SEED))
 
@@ -634,45 +779,73 @@ def main():
             print(json.dumps(r), flush=True)
             checks[(r["name"], r["shape"])] = r
         torch.cuda.empty_cache()
+    # K5 and K3 at the W4A8 decode shape (INT4 and INT8), all rows live,
+    # and K < H in INT8 with bias and gelu
+    w8a8_shapes = [("decode", 128, 32, 2048, 2048, 2048,
+                    np.minimum(routed, 32), False, "relu", 4),
+                   ("decode_int8", 128, 32, 2048, 2048, 2048,
+                    np.minimum(routed, 32), False, "relu", 8),
+                   ("all_rows", 128, 32, 2048, 2048, 2048, [32] * 128, False,
+                    "relu", 4),
+                   ("k_lt_h", 64, 32, 1024, 4096, 1024,
+                    np.random.default_rng(SEED + 1).integers(0, 33, 64), True,
+                    "gelu", 8)]
+    for shape in w8a8_shapes:
+        for r in check_w8a8_kernels(shape, bandwidth):
+            print(json.dumps(r), flush=True)
+            checks[(r["name"], r["shape"])] = r
+        torch.cuda.empty_cache()
+    # K4 at the SwiGLU LM's expert shapes, as for K1/K2 above
+    for shape in (("lm_decode", 32, 16, 1024, 2048, 1024, shapes[3][6], 4),
+                  ("lm_prefill", 32, 8192, 1024, 2048, 1024, shapes[4][6], 4)):
+        r = check_swiglu_kernel(shape, bandwidth)
+        print(json.dumps(r), flush=True)
+        checks[(r["name"], r["shape"])] = r
+        torch.cuda.empty_cache()
 
     gate = {"type": "top", "k": 2, "capacity_factor": 0.0}
-    layer = moe.moe_layer(
-        gate_type=gate, model_dim=2048, dtype=torch.bfloat16, device="cuda",
-        experts={"type": "ffn", "num_experts_per_device": 128,
-                 "hidden_size_per_expert": 2048, "has_fc1_bias": False,
-                 "has_fc2_bias": False})
+
+    def decode_layer(activation_bits):
+        return moe.moe_layer(
+            gate_type=gate, model_dim=2048, dtype=torch.bfloat16,
+            device="cuda",
+            experts={"type": "ffn", "num_experts_per_device": 128,
+                     "hidden_size_per_expert": 2048, "has_fc1_bias": False,
+                     "has_fc2_bias": False,
+                     "activation_bits": activation_bits})
+
+    layer, layer_w4a8 = decode_layer(0), decode_layer(8)
     params = layer.init(torch.Generator(device="cuda").manual_seed(SEED))
     params["experts"] = quant.quantize_expert_params(params["experts"], 4)
     torch.cuda.empty_cache()
-    serve(layer, params, 16, (2, 2), True, SEED + 7)           # warm-up
-    serve(layer, params, 16, (2, 2), False, SEED + 7)
+    for lay in (layer, layer_w4a8):                            # warm-up
+        serve(lay, params, 16, (2, 2), True, SEED + 7)
+        serve(lay, params, 16, (2, 2), False, SEED + 7)
 
-    counters = {"grouped_gemm_quant": gq.grouped_gemm_quant,
-                "fused_ffn_quant": fused_ffn.fused_ffn_quant}
     launches = {}
-    for path, auto_fuse, n_req, runs in (("fused", True, 512, "fused_ffn_quant"),
-                                         ("two_call", False, 128,
-                                          "grouped_gemm_quant")):
-        for f in counters.values():
-            f.launches = 0
-        eng, seconds = serve(layer, params, n_req, (8, 32), auto_fuse,
-                                SEED)
-        counts = {k: f.launches for k, f in counters.items()}
+    for path, lay, auto_fuse, n_req, runs in (
+            ("fused", layer, True, 512, "fused_ffn_quant"),
+            ("two_call", layer, False, 128, "grouped_gemm_quant"),
+            ("w4a8_fused", layer_w4a8, True, 512, "fused_ffn_w8a8"),
+            ("w4a8_two_call", layer_w4a8, False, 128, "grouped_gemm_w8a8")):
+        reset_launches()
+        eng, seconds = serve(lay, params, n_req, (8, 32), auto_fuse, SEED)
+        counts = read_launches(path, {runs})
         print(json.dumps({
             "phase": "serve", "path": path, "requests": n_req,
             "tokens": eng.stats["tokens"], "decode_steps": eng.stats["steps"],
             "spec_retries": eng.stats["spec_retries"], "seconds": seconds,
             "tokens_per_s": eng.stats["tokens"] / seconds,
             "launches": counts, "card": smi}), flush=True)
-        other = [k for k in counters if k != runs][0]
-        if counts[runs] <= 0 or counts[other] != 0:
-            raise RuntimeError(f"{path} run launched {counts}")
         launches[runs] = counts[runs]
 
     print(json.dumps({"phase": "small_engine_vs_cpu",
                       "max_rel_err": small_engine_check(), "tol": SMALL_TOL}),
           flush=True)
-    del layer, params, eng
+    print(json.dumps({"phase": "small_w4a8_engine_vs_cpu",
+                      "max_rel_err": small_engine_check(8, W8A8_TOL),
+                      "tol": W8A8_TOL}), flush=True)
+    del layer, layer_w4a8, params, eng
     torch.cuda.empty_cache()
 
     for mode in ("int8", "bfloat16", "int4"):
@@ -691,31 +864,37 @@ def main():
             checks[(name, "bfloat16")]["library_ms"]
     torch.cuda.empty_cache()
 
-    lm = TransformerMoE(TransformerMoEConfig(**LM_CONFIG,
-                                             dtype=torch.bfloat16),
-                        device="cuda")
-    lm_p = lm_params(lm, torch.Generator(device="cuda").manual_seed(SEED))
-    warm = lm_serve(lm, lm_p, 64, 1664, 16, SEED + 1)          # warm-up
-    print(json.dumps({"phase": "lm_warmup", **warm}), flush=True)
-    for f in LM_KERNELS.values():
-        f.launches = 0
-    lm_run = lm_serve(lm, lm_p, 64, 1664, 320, SEED)
-    counts = {k: f.launches for k, f in LM_KERNELS.items()}
-    print(json.dumps({"phase": "lm_serve", **lm_run, "launches": counts,
-                      "card": smi}), flush=True)
-    if counts["grouped_gemm_quant"] != 0 or any(
-            counts[k] <= 0 for k in counts if k != "grouped_gemm_quant"):
-        raise RuntimeError(f"the LM serve phase launched {counts}")
-    launches.update({k: counts[k] for k in
-                     ("decode_attn", "prefill_attn", "kv_write")})
-    print(json.dumps({"phase": "lm_profile",
-                      **lm_profile(lm, lm_p, SEED + 2)}), flush=True)
-    del lm, lm_p
-    torch.cuda.empty_cache()
+    attn = {"decode_attn", "prefill_attn", "kv_write"}
+    for label, expert_type, ffn_kernel in (
+            ("lm", "ffn", "fused_ffn_quant"),
+            ("swiglu_lm", "llama_ffn", "fused_swiglu_quant")):
+        lm = TransformerMoE(TransformerMoEConfig(
+            **LM_CONFIG, expert_type=expert_type, dtype=torch.bfloat16),
+            device="cuda")
+        lm_p = lm_params(lm, torch.Generator(device="cuda").manual_seed(SEED))
+        warm = lm_serve(lm, lm_p, 64, 1664, 16, SEED + 1)      # warm-up
+        print(json.dumps({"phase": f"{label}_warmup", **warm}), flush=True)
+        reset_launches()
+        lm_run = lm_serve(lm, lm_p, 64, 1664, 320, SEED)
+        counts = read_launches(f"{label} serve", attn | {ffn_kernel})
+        print(json.dumps({"phase": f"{label}_serve", **lm_run,
+                          "launches": counts, "card": smi}), flush=True)
+        if label == "lm":
+            launches.update({k: counts[k] for k in attn})
+        else:
+            launches[ffn_kernel] = counts[ffn_kernel]
+        print(json.dumps({"phase": f"{label}_profile",
+                          **lm_profile(lm, lm_p, SEED + 2)}), flush=True)
+        del lm, lm_p
+        torch.cuda.empty_cache()
 
     print(json.dumps({"phase": "small_lm_engine_vs_cpu",
                       "max_rel_err": small_lm_check(), "tol": SMALL_TOL,
                       "greedy_tokens": "identical"}), flush=True)
+    print(json.dumps({"phase": "small_swiglu_lm_engine_vs_cpu",
+                      "max_rel_err": small_lm_check("llama_ffn", (8,)),
+                      "tol": SMALL_TOL, "greedy_tokens": "identical"}),
+          flush=True)
 
     sources = {
         "grouped_gemm_quant": ("tutel_tpu_torch/csrc/grouped_gemm_quant.cu",
@@ -724,6 +903,13 @@ def main():
         "fused_ffn_quant": ("tutel_tpu_torch/csrc/fused_ffn_quant.cu",
                             "tutel_tpu/ops/fused_ffn_pallas.py:209",
                             "decode"),
+        "fused_ffn_w8a8": ("tutel_tpu_torch/csrc/fused_ffn_w8a8.cu",
+                           "tutel_tpu/ops/fused_ffn_pallas.py:354", "decode"),
+        "fused_swiglu_quant": ("tutel_tpu_torch/csrc/fused_swiglu_quant.cu",
+                               "tutel_tpu/ops/fused_ffn_pallas.py:556",
+                               "lm_decode"),
+        "grouped_gemm_w8a8": ("tutel_tpu_torch/csrc/grouped_gemm_w8a8.cu",
+                              "tutel_tpu/ops/w8a8_pallas.py:81", "decode"),
         "decode_attn": ("tutel_tpu_torch/csrc/decode_attn.cu",
                         "tutel_tpu/ops/decode_attn_pallas.py:171", "int8"),
         "prefill_attn": ("tutel_tpu_torch/csrc/prefill_attn.cu",

@@ -240,6 +240,46 @@ def test_convert_carries_a_whole_model_tree():
         np.asarray(blk["moe"]["gates"][0]["wg"]))
 
 
+def test_bfloat16_dense_ffn_matches_jax():
+    """A bfloat16 model's dense FFN keeps both products in float32 through
+    the bias (and the gelu) and rounds once, as the JAX model does
+    (tutel_tpu/models/transformer.py:236-241). The block then differs from
+    the JAX formula only where a float32 sum taken in another order rounds
+    to the other bfloat16 neighbour: 1e-4 of max |reference|. Rounding the
+    products to bfloat16 first misses by 5e-3. The logits of a whole bf16
+    model also differ at the other bf16 rounding points of attention, so
+    they are held to one bfloat16 step (2^-7) of the largest logit at
+    most, and to 2e-3 in the mean relative to the mean |logit| (about
+    5.5e-3 with the products rounded first)."""
+    cfg = dict(SMALL, model_dim=64, ffn_hidden=256)
+    jm = JModel(JConfig(**cfg, dtype=jnp.bfloat16), group=jax.devices()[:1])
+    tm = TransformerMoE(TransformerMoEConfig(**cfg, dtype=torch.bfloat16),
+                        device="cpu")
+    jp = jm.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    f = {k: jnp.asarray(rng.standard_normal(np.shape(v))
+                        * (0.1 if k[0] == "b" else 0.2), jnp.bfloat16)
+         for k, v in jp["blocks"][0]["ffn"].items()}
+    h = jnp.asarray(rng.standard_normal((2, 16, 64)), jnp.bfloat16)
+    hdn = jnp.einsum("btd,dh->bth", h, f["w1"],
+                     preferred_element_type=jnp.float32)
+    hdn = jax.nn.gelu(hdn + f["b1"]).astype(jnp.bfloat16)
+    o = jnp.einsum("bth,hd->btd", hdn, f["w2"],
+                   preferred_element_type=jnp.float32)
+    ref = (o + f["b2"]).astype(jnp.bfloat16)
+    got = tm._ffn(convert.from_jax_params(f, "cpu"),
+                  convert.to_tensor(h, "cpu"))
+    assert got.dtype == torch.bfloat16
+    _close(got, np.asarray(ref, np.float32))
+    toks = _tokens((2, 16))
+    lj, _ = jm.apply(jp, jnp.asarray(toks))
+    lt, _ = tm.apply(convert.from_jax_params(jp, "cpu"),
+                     torch.from_numpy(toks))
+    lj, lt = np.asarray(lj, np.float64), lt.double().numpy()
+    _close(lt, lj, tol=2.0 ** -7)
+    assert np.mean(np.abs(lt - lj)) <= 2e-3 * np.mean(np.abs(lj))
+
+
 def test_bfloat16_model_runs_and_rejects_bad_configs():
     cfg = TransformerMoEConfig(**dict(SMALL, dtype=torch.bfloat16,
                                       kv_bits=8))

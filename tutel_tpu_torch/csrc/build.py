@@ -33,6 +33,14 @@ SIGNATURES = {
     # dtype, tile_rows, device; stream
     "fused_ffn_quant": ("fused_ffn_quant_launch",
                         [_P] * 5 + [_I] * 13 + [_P]),
+    # xq, sx, wstream, sb, counts, out; the ints of fused_ffn_quant; stream
+    "fused_ffn_w8a8": ("fused_ffn_w8a8_launch", [_P] * 6 + [_I] * 13 + [_P]),
+    # the arguments of fused_ffn_quant
+    "fused_swiglu_quant": ("fused_swiglu_quant_launch",
+                           [_P] * 5 + [_I] * 13 + [_P]),
+    # xq, sx, w, scales, counts, out; E, C, K, N, bits, dtype, device; stream
+    "grouped_gemm_w8a8": ("grouped_gemm_w8a8_launch",
+                          [_P] * 6 + [_I] * 7 + [_P]),
     # descriptor table (host), n, pos, B, device, stream
     "kv_write": ("kv_write_launch", [_P, _I, _P, _I, _I, _P]),
     # q, k, v, ks, vs, pos, k_new, v_new, k_new_scale, v_new_scale, out;

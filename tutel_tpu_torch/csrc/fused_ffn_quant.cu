@@ -30,37 +30,14 @@
 // of 4, 8 or 16 rows is picked from the live row count. Experts with no
 // rows read no weights. Tensor cores are not used yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ffn_common.cuh"
 
 namespace {
 
+using namespace ffn;
+
 constexpr int kThreads = 256;
 constexpr int kCols = 4;                       // columns per thread
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float y) {
-  if constexpr (ACT == 0) {
-    return fmaxf(y, 0.f);
-  } else {
-    const float inner = 0.7978845608028654f * (y + 0.044715f * y * y * y);
-    return 0.5f * y * (1.f + tanhf(inner));
-  }
-}
 
 // One phase over stream tiles [t_begin, t_end): src [ROWS][W] in shared
 // memory times each tile, over the first `prow` packed rows.
@@ -80,32 +57,7 @@ __device__ void phase(const T* src, int W, const int8_t* __restrict__ we,
       for (int r = 0; r < ROWS; ++r)
 #pragma unroll
         for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
-      const int8_t* wp = tile + c0;
-#pragma unroll 4
-      for (int p = 0; p < prow; ++p) {
-        const unsigned packed = *reinterpret_cast<const unsigned*>(wp + (size_t)p * bw);
-        float xl[ROWS], xh[ROWS];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          xl[r] = to_float(src[r * W + p]);
-          if constexpr (BITS == 4) xh[r] = to_float(src[r * W + kr + p]);
-        }
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const unsigned byte = packed >> (8 * j);
-          if constexpr (BITS == 4) {
-            const float lo = (float)((int)(int8_t)(byte << 4) >> 4);
-            const float hi = (float)((int)(int8_t)byte >> 4);
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r)
-              acc[r][j] = fmaf(xl[r], lo, fmaf(xh[r], hi, acc[r][j]));
-          } else {
-            const float q = (float)(int8_t)byte;
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r) acc[r][j] = fmaf(xl[r], q, acc[r][j]);
-          }
-        }
-      }
+      float_dot_cols<T, BITS, ROWS>(src, W, tile + c0, prow, kr, bw, acc);
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const float s = scale[c0 + j], b = bias[c0 + j];
@@ -160,19 +112,8 @@ fused_ffn_kernel(const T* __restrict__ x, const int8_t* __restrict__ wstream,
   if (live == 0) return;
 
   // stage x in the unpacked row order of the fc1 tiles; rows >= live are 0
-  const T* xe = x + ((size_t)e * C + r0) * K;
-  const int kq = BITS == 4 ? K / 2 : K;
-  for (int idx = threadIdx.x; idx < tile_rows * W; idx += kThreads) {
-    const int r = idx / W, i = idx % W;
-    int src = -1;
-    if (r < live) {
-      if (BITS == 4)
-        src = i < kr ? (i < kq ? i : -1) : (i - kr < kq ? kq + i - kr : -1);
-      else
-        src = i < K ? i : -1;
-    }
-    xs[idx] = src >= 0 ? xe[(size_t)r * K + src] : from_float<T>(0.f);
-  }
+  stage_x<BITS>(xs, x + ((size_t)e * C + r0) * K, K, kr, W, tile_rows, live,
+                from_float<T>(0.f));
   __syncthreads();
 
   const int T_all = t1 + t2;

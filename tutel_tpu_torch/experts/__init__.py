@@ -1,10 +1,12 @@
 """Pluggable expert registry (counterpart: tutel_tpu/experts/__init__.py).
-This slice ports the 'ffn' expert."""
+Ported: the two-layer 'ffn' expert and the SwiGLU 'llama_ffn' expert."""
 
 from . import ffn  # noqa: F401
+from . import llama_ffn  # noqa: F401
 
 _REGISTRY = {
     "ffn": ffn.ExpertModule,
+    "llama_ffn": llama_ffn.ExpertModule,
 }
 
 

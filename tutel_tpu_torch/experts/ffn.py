@@ -4,7 +4,9 @@ Weights are input-major as in the JAX package: fc1_w [E, M, H],
 fc2_w [E, H, O]. Float weights run two batched matmuls (`torch.bmm`, as
 the JAX package leaves these to XLA); quantized weights
 (`ops.quant.QuantizedWeight`) run `ops.grouped_gemm_quant.quantized_ffn`,
-which launches the CUDA kernels K2 or K1 for CUDA tensors.
+which launches the CUDA kernels K2 or K1 for CUDA tensors, or, with
+`activation_bits=8` (W8A8 / W4A8), `ops.w8a8.w8a8_ffn`, which launches K3
+or K5. Float weights ignore `activation_bits`, as in the JAX package.
 The default activation is relu.
 """
 
@@ -16,6 +18,7 @@ import torch
 from ..ops.activations import relu
 from ..ops.grouped_gemm_quant import quantized_ffn
 from ..ops.quant import QuantizedWeight
+from ..ops.w8a8 import w8a8_ffn
 from ..utils import initializers
 
 
@@ -28,12 +31,9 @@ class FusedExpertsNetwork:
     output_dim: Optional[int] = None
     has_fc1_bias: bool = True
     has_fc2_bias: bool = True
-    activation_bits: int = 0       # 8 = W8A8, a later slice (kernels K3, K5)
+    activation_bits: int = 0       # 8 = W8A8 integer-domain GEMMs
 
     def __post_init__(self):
-        if self.activation_bits not in (0, None):
-            raise NotImplementedError(
-                "activation_bits=8 (W8A8) is not ported yet")
         self.output_dim = self.output_dim or self.model_dim
         if self.activation_fn is None:
             self.activation_fn = relu
@@ -60,9 +60,9 @@ class FusedExpertsNetwork:
         """x: [E, rows, M] -> [E, rows, output_dim]."""
         fc1_w, fc2_w = params["fc1_w"], params["fc2_w"]
         if isinstance(fc1_w, QuantizedWeight):
-            return quantized_ffn(x, params, ctx,
-                                 activation_fn=self.activation_fn,
-                                 output_dim=self.output_dim)
+            ffn = w8a8_ffn if self.activation_bits == 8 else quantized_ffn
+            return ffn(x, params, ctx, activation_fn=self.activation_fn,
+                       output_dim=self.output_dim)
         fc1_b, fc2_b = params.get("fc1_b"), params.get("fc2_b")
         y = torch.bmm(x, fc1_w.to(x.dtype))
         if fc1_b is not None:

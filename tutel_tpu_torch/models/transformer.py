@@ -35,7 +35,7 @@ from ..impls.moe_layer import MOELayer
 from ..ops.activations import gelu
 from ..ops.decode_attn import decode_attn, prefill_attn, unpack_int4
 from ..ops.kv_write import write_step
-from ..utils import resolve_device
+from ..utils import matmul_f32, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,10 +165,11 @@ class TransformerMoE:
         return y * p["scale"] + p["bias"]
 
     def _ffn(self, f, h):
-        """The dense FFN block: gelu(h @ w1 + b1) @ w2 + b2, bias and
-        activation in float32."""
-        hdn = gelu((h @ f["w1"]).float() + f["b1"].float()).to(self.cfg.dtype)
-        o = (hdn @ f["w2"]).float() + f["b2"].float()
+        """The dense FFN block: gelu(h @ w1 + b1) @ w2 + b2. Both products
+        stay in float32 through their bias (and the gelu), then round to
+        the model dtype, as in the JAX model."""
+        hdn = gelu(matmul_f32(h, f["w1"]) + f["b1"].float())
+        o = matmul_f32(hdn.to(self.cfg.dtype), f["w2"]) + f["b2"].float()
         return o.to(self.cfg.dtype)
 
     def _moe_call(self, i, moe_params, h, **overrides):

@@ -1,19 +1,32 @@
-"""Single-kernel fused quantized expert FFN, fc1 + activation + fc2
-(counterpart: tutel_tpu/ops/fused_ffn_pallas.py:64-271,501-519,609-625).
+"""Single-kernel fused quantized expert FFNs over one phase-packed weight
+stream (counterpart: tutel_tpu/ops/fused_ffn_pallas.py).
 
 `prepare_fused_ffn` re-lays two QuantizedWeights once into the JAX
 package's phase-packed stream, byte for byte: `wstream` int8
 [E, T1+T2, Kr, bw] holds the fc1 column tiles then the fc2 column tiles,
-and `sb` f32 [E, T1+T2, 2, bw] their scale and bias rows. A stream
-prepared by the JAX package therefore converts unchanged
-(`convert.from_jax_params`).
+and `sb` f32 [E, T1+T2, 2, bw] their scale and bias rows.
+`prepare_fused_swiglu` does the same for a SwiGLU expert: T1 W1 tiles, T1
+W2 tiles, then T2 W3 tiles, with zero bias rows. A stream prepared by the
+JAX package therefore converts unchanged (`convert.from_jax_params`).
 
-`fused_ffn_quant` launches the CUDA kernel K2 (`csrc/fused_ffn_quant.cu`)
-for CUDA tensors and runs its plain PyTorch twin,
-`fused_ffn_quant_reference`, for CPU tensors. The hidden activations are
-rounded to x's dtype before fc2, as in the Pallas kernel. Rows at or past
-counts[e] are zeros; the JAX kernel leaves act(b1) @ W2 + b2 there, which
-no caller reads. Inference only. Requires H >= K.
+Three kernels read such a stream, each launched for CUDA tensors, each
+with a plain PyTorch twin (`*_reference`) that CPU tensors run:
+
+  * `fused_ffn_quant`, kernel K2 (`csrc/fused_ffn_quant.cu`):
+    act(x @ W1 + b1) @ W2 + b2, the hidden rounded to x's dtype;
+  * `fused_ffn_w8a8`, kernel K3 (`csrc/fused_ffn_w8a8.cu`): the same FFN
+    with x quantized per row to int8 and both products int8 x int8 ->
+    int32; the hidden stays float32 and is re-quantized per row in the
+    kernel;
+  * `fused_swiglu_quant`, kernel K4 (`csrc/fused_swiglu_quant.cu`):
+    (act(x @ W1) * (x @ W2)) @ W3, the hidden rounded to x's dtype after
+    the activation and after the product, as in the Pallas kernel.
+
+Rows at or past counts[e] are zeros; the JAX kernels leave bias-only
+values there, which no caller reads. The JAX package's VMEM gates and
+chunk ladders were TPU devices and are gone: the kernels take any stream
+whose hidden row tile fits the card's shared memory. Inference only.
+Requires H >= K.
 """
 
 import dataclasses
@@ -21,11 +34,11 @@ import dataclasses
 import torch
 
 from ..csrc import build
-from .activations import gelu, kernel_code
-from .quant import QuantizedWeight, unpack_int4
+from .activations import gelu, kernel_code, silu
+from .quant import QuantizedWeight, int_bmm, quantize_activations, unpack_int4
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# shared memory one block of K2 may use on Hopper (227 KB)
+# shared memory one block of the fused kernels may use on Hopper (227 KB)
 SMEM_BYTES = 232448
 
 
@@ -51,6 +64,32 @@ def tile_rows(h, itemsize):
         if 2 * rows * h * itemsize <= SMEM_BYTES:
             return rows
     return None
+
+
+def _tile_cols(qw: QuantizedWeight, bias, ncols, nt, bw, kr):
+    """One weight's column tiles: values [E, nt, kr, bw] (columns padded to
+    nt * bw, packed rows to kr) and their scale and bias rows
+    [E, nt, 2, bw] (a missing bias is zeros)."""
+    v = qw.values
+    e = v.shape[0]
+    s = qw.scales.float().expand(e, 1, ncols)
+    b = (torch.zeros((e, 1, ncols), device=v.device) if bias is None
+         else bias.float().reshape(e, 1, ncols))
+    pad = nt * bw - ncols
+    if pad:
+        v, s, b = (torch.nn.functional.pad(t, (0, pad)) for t in (v, s, b))
+    if v.shape[1] < kr:
+        v = torch.nn.functional.pad(v, (0, 0, 0, kr - v.shape[1]))
+    v = v.reshape(e, kr, nt, bw).permute(0, 2, 1, 3)
+    sb = torch.cat([s, b], dim=1).reshape(e, 2, nt, bw).permute(0, 2, 1, 3)
+    return v, sb
+
+
+def _stream(parts, bits, k, h, n, t1, t2, bw, kr):
+    return FusedFFNStream(
+        wstream=torch.cat([v for v, _ in parts], dim=1).contiguous(),
+        sb=torch.cat([sb for _, sb in parts], dim=1).contiguous(),
+        bits=bits, k=k, h=h, n=n, t1=t1, t2=t2, bw=bw, kr=kr)
 
 
 def prepare_fused_ffn(fc1: QuantizedWeight, fc2: QuantizedWeight,
@@ -81,36 +120,65 @@ def prepare_fused_ffn(fc1: QuantizedWeight, fc2: QuantizedWeight,
         return None
     t1 = h // bw
     t2 = -(-n // bw)               # fc2 output columns are padded to bw
-
-    def tile_cols(qw, bias, ncols, nt):
-        v = qw.values
-        s = qw.scales.float().expand(e, 1, ncols)
-        b = (torch.zeros((e, 1, ncols), device=v.device) if bias is None
-             else bias.float().reshape(e, 1, ncols))
-        pad = nt * bw - ncols
-        if pad:
-            v, s, b = (torch.nn.functional.pad(t, (0, pad)) for t in (v, s, b))
-        if v.shape[1] < kr:
-            v = torch.nn.functional.pad(v, (0, 0, 0, kr - v.shape[1]))
-        v = v.reshape(e, kr, nt, bw).permute(0, 2, 1, 3)
-        sb = torch.cat([s, b], dim=1).reshape(e, 2, nt, bw).permute(0, 2, 1, 3)
-        return v, sb
-
     if fc2_b is not None and fc2_b.shape[-1] != n:
         fc2_b = torch.nn.functional.pad(fc2_b, (0, n - fc2_b.shape[-1]))
-    v1, sb1 = tile_cols(fc1, fc1_b, h, t1)
-    v2, sb2 = tile_cols(fc2, fc2_b, n, t2)
-    return FusedFFNStream(
-        wstream=torch.cat([v1, v2], dim=1).contiguous(),
-        sb=torch.cat([sb1, sb2], dim=1).contiguous(),
-        bits=bits, k=k, h=h, n=n, t1=t1, t2=t2, bw=bw, kr=kr)
+    return _stream([_tile_cols(fc1, fc1_b, h, t1, bw, kr),
+                    _tile_cols(fc2, fc2_b, n, t2, bw, kr)],
+                   bits, k, h, n, t1, t2, bw, kr)
+
+
+def prepare_fused_swiglu(w1: QuantizedWeight, w2: QuantizedWeight,
+                         w3: QuantizedWeight, bw=None):
+    """The phase-packed stream of a SwiGLU expert (`experts.llama_ffn`):
+    out = (act(x @ W1) * (x @ W2)) @ W3, W1/W2 [E, K, H], W3 [E, H, N].
+
+    Tiles: t1 W1 tiles, then t1 W2 tiles, then t2 W3 tiles; the bias rows
+    of `sb` are zeros. The tile width is the JAX package's choice (the
+    largest divisor of H in 2048..128 whose two packed tiles stay under
+    12 MB), so a stream prepared by either package is byte-identical.
+    Returns None when the shapes don't qualify, as `prepare_fused_ffn`
+    does (this includes a hidden row tile too wide for shared memory).
+    """
+    qs = (w1, w2, w3)
+    if any(not isinstance(q, QuantizedWeight) for q in qs):
+        return None
+    bits = w1.bits
+    if any(q.bits != bits or q.blocks != 1 for q in qs):
+        return None
+    e, k, h = w1.shape
+    if w2.shape != (e, k, h):
+        return None
+    e3, h3, n = w3.shape
+    if e3 != e or h3 != h or h < k or tile_rows(h, 4) is None:
+        return None
+    kr = w3.values.shape[1]        # packed rows of W3 (H or H/2) == max
+    budget = 12 * 1024 * 1024
+    if bw is None:
+        bw = next((cand for cand in (2048, 1024, 512, 256, 128)
+                   if h % cand == 0 and 2 * kr * cand <= budget), None)
+        if bw is None:
+            return None
+    if h % bw or 2 * kr * bw > budget:
+        return None
+    t1 = h // bw
+    t2 = -(-n // bw)
+    return _stream([_tile_cols(w1, None, h, t1, bw, kr),
+                    _tile_cols(w2, None, h, t1, bw, kr),
+                    _tile_cols(w3, None, n, t2, bw, kr)],
+                   bits, k, h, n, t1, t2, bw, kr)
 
 
 def prepare_fused_ffn_params(params, bw=None):
     """A copy of an expert param dict with a "fused_stream" entry, or the
-    dict itself when its weights don't qualify."""
-    st = prepare_fused_ffn(params.get("fc1_w"), params.get("fc2_w"),
-                           params.get("fc1_b"), params.get("fc2_b"), bw=bw)
+    dict itself when its weights don't qualify: the SwiGLU stream for
+    w1/w2/w3 experts, the two-layer stream for fc1/fc2 experts."""
+    if "w1" in params and "w3" in params:
+        st = prepare_fused_swiglu(params.get("w1"), params.get("w2"),
+                                  params.get("w3"), bw=bw)
+    else:
+        st = prepare_fused_ffn(params.get("fc1_w"), params.get("fc2_w"),
+                               params.get("fc1_b"), params.get("fc2_b"),
+                               bw=bw)
     if st is None:
         return params
     out = dict(params)
@@ -139,29 +207,86 @@ def live_rows(c, counts, device):
             < counts.to(device)[:, None, None])
 
 
+def _unpacked(stream: FusedFFNStream):
+    """The stream's values as int8 [E, T, W, bw], W = pack * Kr unpacked
+    rows in split-half order."""
+    return stream.wstream if stream.bits == 8 else unpack_int4(stream.wstream)
+
+
+def _tiles(stream: FusedFFNStream, q, lo, hi):
+    """Tiles [lo, hi) of unpacked values q as one matrix [E, W, nt * bw],
+    with their scale and bias rows [E, 2, nt * bw]."""
+    e, _, w, bw = q.shape
+    nt = hi - lo
+    vals = q[:, lo:hi].permute(0, 2, 1, 3).reshape(e, w, nt * bw)
+    sb = stream.sb[:, lo:hi].permute(0, 2, 1, 3).reshape(e, 2, nt * bw)
+    return vals, sb
+
+
+def _live_out(out, counts, dtype):
+    """out with rows at or past counts[e] zeroed, in `dtype`."""
+    if counts is not None:
+        out = torch.where(live_rows(out.shape[1], counts, out.device), out,
+                          torch.zeros_like(out))
+    return out.to(dtype)
+
+
 def fused_ffn_quant_reference(x, stream: FusedFFNStream, counts=None,
                               activation_fn=gelu):
     """Plain PyTorch twin of K2: dequantize the stream, einsum in float32,
     scale, add bias; hidden rounded to x's dtype before fc2. Rows at or
     past counts[e] are zeros."""
-    e, c, _ = x.shape
-    t1, t2, kr, bw = stream.t1, stream.t2, stream.kr, stream.bw
-    q = stream.wstream if stream.bits == 8 else unpack_int4(stream.wstream)
-    q = q.float()                                     # [E, T, W, bw]
-    w = q.shape[2]
-    w1 = q[:, :t1].permute(0, 2, 1, 3).reshape(e, w, t1 * bw)
-    w2 = q[:, t1:].permute(0, 2, 1, 3).reshape(e, w, t2 * bw)
-    sb1 = stream.sb[:, :t1].permute(0, 2, 1, 3).reshape(e, 2, t1 * bw)
-    sb2 = stream.sb[:, t1:].permute(0, 2, 1, 3).reshape(e, 2, t2 * bw)
-    xp = relayout_x(x, stream.bits, kr).float()
+    t1, t2 = stream.t1, stream.t2
+    q = _unpacked(stream).float()
+    w1, sb1 = _tiles(stream, q, 0, t1)
+    w2, sb2 = _tiles(stream, q, t1, t1 + t2)
+    xp = relayout_x(x, stream.bits, stream.kr).float()
     h = torch.bmm(xp, w1) * sb1[:, 0:1] + sb1[:, 1:2]
     h = activation_fn(h).to(x.dtype)
-    out = (torch.bmm(h.float(), w2) * sb2[:, 0:1] + sb2[:, 1:2])
-    out = out[..., :stream.n]
-    if counts is not None:
-        out = torch.where(live_rows(c, counts, x.device), out,
-                          torch.zeros_like(out))
-    return out.to(x.dtype)
+    out = torch.bmm(h.float(), w2) * sb2[:, 0:1] + sb2[:, 1:2]
+    return _live_out(out[..., :stream.n], counts, x.dtype)
+
+
+def fused_ffn_w8a8_hidden(x, stream: FusedFFNStream, activation_fn=gelu):
+    """K3's re-quantized hidden as its twin computes it: (hq int8 [E, C,
+    H], sxh f32 [E, C, 1]) from h = act((float)(xq @ W1) * sx * s1 + b1),
+    kept in float32 and quantized per row over all H columns."""
+    xq, sx = quantize_activations(x)
+    w1, sb1 = _tiles(stream, _unpacked(stream), 0, stream.t1)
+    acc = int_bmm(relayout_x(xq, stream.bits, stream.kr), w1)
+    return quantize_activations(
+        activation_fn(acc * sx * sb1[:, 0:1] + sb1[:, 1:2]))
+
+
+def fused_ffn_w8a8_reference(x, stream: FusedFFNStream, counts=None,
+                             activation_fn=gelu):
+    """Plain PyTorch twin of K3: per-row int8 x, exact integer products,
+    the float32 hidden re-quantized per row between fc1 and fc2, and
+    out = (float)(hq @ W2) * sxh * s2 + b2. Rows at or past counts[e] are
+    zeros."""
+    hq, sxh = fused_ffn_w8a8_hidden(x, stream, activation_fn)
+    t1, t2 = stream.t1, stream.t2
+    w2, sb2 = _tiles(stream, _unpacked(stream), t1, t1 + t2)
+    out = int_bmm(hq, w2) * sxh * sb2[:, 0:1] + sb2[:, 1:2]
+    return _live_out(out[..., :stream.n], counts, x.dtype)
+
+
+def fused_swiglu_quant_reference(x, stream: FusedFFNStream, counts=None,
+                                 activation_fn=silu):
+    """Plain PyTorch twin of K4: dequantize the stream, products in
+    float32, and the hidden rounded to x's dtype twice, as in the Pallas
+    kernel: h = T(act(x @ W1 * s1)), h = T(h * (x @ W2 * s2)), then
+    out = h @ W3 * s3. Rows at or past counts[e] are zeros."""
+    t1, t2 = stream.t1, stream.t2
+    q = _unpacked(stream).float()
+    w1, sb1 = _tiles(stream, q, 0, t1)
+    w2, sb2 = _tiles(stream, q, t1, 2 * t1)
+    w3, sb3 = _tiles(stream, q, 2 * t1, 2 * t1 + t2)
+    xp = relayout_x(x, stream.bits, stream.kr).float()
+    h = activation_fn(torch.bmm(xp, w1) * sb1[:, 0:1]).to(x.dtype)
+    h = (h.float() * (torch.bmm(xp, w2) * sb2[:, 0:1])).to(x.dtype)
+    out = torch.bmm(h.float(), w3) * sb3[:, 0:1]
+    return _live_out(out[..., :stream.n], counts, x.dtype)
 
 
 def check_cuda(name, t, device, dtype):
@@ -181,6 +306,54 @@ def counts_i32(counts, e, c, device):
     return counts.to(device=device, dtype=torch.int32).contiguous()
 
 
+def _check_x(name, x, stream: FusedFFNStream):
+    """Raise unless x [E, C, K] matches the stream and lies on the CPU or
+    a CUDA device."""
+    e, _, k = x.shape
+    if k != stream.k or e != stream.wstream.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match the stream "
+                         f"(E={stream.wstream.shape[0]}, K={stream.k})")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+
+
+def _check_cuda_stream(x, stream: FusedFFNStream):
+    """The device checks every fused kernel makes; returns the unpacked
+    row count W = pack * Kr (== H)."""
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    check_cuda("x", x, x.device, x.dtype)
+    check_cuda("stream.wstream", stream.wstream, x.device, torch.int8)
+    check_cuda("stream.sb", stream.sb, x.device, torch.float32)
+    if stream.bw % 4:
+        raise ValueError(f"the fused kernels need bw % 4 == 0, got "
+                         f"{stream.bw}")
+    return (2 if stream.bits == 4 else 1) * stream.kr
+
+
+def _launch(fn, x, stream: FusedFFNStream, xdata, sx, counts, act, rows):
+    """Allocate the output and launch the kernel of wrapper `fn` (K2, K3 or
+    K4, built from `csrc/<fn name>.cu`) over the stream; xdata is what the
+    kernel reads for x, sx K3's row scales (else None)."""
+    name = fn.__name__
+    e, c, k = x.shape
+    cnt = counts_i32(counts, e, c, x.device)
+    out = torch.empty((e, c, stream.n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load(name)
+    cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
+    head = [xdata.data_ptr()] + ([] if sx is None else [sx.data_ptr()])
+    rc = getattr(lib, name + "_launch")(
+        *head, stream.wstream.data_ptr(), stream.sb.data_ptr(),
+        cnt.data_ptr(), out.data_ptr(), e, c, k, stream.kr, stream.bw,
+        stream.t1, stream.t2, stream.n, stream.bits, act,
+        DTYPE_CODES[x.dtype], rows, x.device.index or 0, cuda_stream)
+    build.check(lib, rc, name)
+    fn.launches += 1
+    return out
+
+
 def fused_ffn_quant(x, stream: FusedFFNStream, counts=None,
                     activation_fn=gelu):
     """out[e] = act(x[e] @ W1[e] * s1 + b1) @ W2[e] * s2 + b2, one kernel.
@@ -190,41 +363,78 @@ def fused_ffn_quant(x, stream: FusedFFNStream, counts=None,
     tensors run the plain twin; CUDA tensors run kernel K2, and anything
     the kernel does not take (another activation, dtype or layout) raises.
     """
-    e, c, k = x.shape
-    if k != stream.k or e != stream.wstream.shape[0]:
-        raise ValueError(f"x {tuple(x.shape)} does not match the stream "
-                         f"(E={stream.wstream.shape[0]}, K={stream.k})")
+    _check_x("fused_ffn_quant", x, stream)
     if x.device.type == "cpu":
         return fused_ffn_quant_reference(x, stream, counts, activation_fn)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ffn_quant runs on cpu or cuda, not "
-                         f"{x.device}")
     act = kernel_code(activation_fn)
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    check_cuda("x", x, x.device, x.dtype)
-    check_cuda("stream.wstream", stream.wstream, x.device, torch.int8)
-    check_cuda("stream.sb", stream.sb, x.device, torch.float32)
-    w = (2 if stream.bits == 4 else 1) * stream.kr
+    if act not in (0, 1):
+        raise ValueError(f"K2 takes relu or gelu, not {activation_fn!r}")
+    w = _check_cuda_stream(x, stream)
     rows = tile_rows(w, x.element_size())
-    if rows is None or stream.bw % 4:
-        raise ValueError(f"K2 needs bw % 4 == 0 and a hidden width whose "
-                         f"4-row tile fits in {SMEM_BYTES} bytes of shared "
-                         f"memory; got bw={stream.bw}, H={w}, {x.dtype}")
-    cnt = counts_i32(counts, e, c, x.device)
-    out = torch.empty((e, c, stream.n), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    lib = build.load("fused_ffn_quant")
-    cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.fused_ffn_quant_launch(
-        x.data_ptr(), stream.wstream.data_ptr(), stream.sb.data_ptr(),
-        cnt.data_ptr(), out.data_ptr(), e, c, k, stream.kr, stream.bw,
-        stream.t1, stream.t2, stream.n, stream.bits, act, DTYPE_CODES[x.dtype],
-        rows, x.device.index or 0, cuda_stream)
-    build.check(lib, rc, "fused_ffn_quant")
-    fused_ffn_quant.launches += 1
-    return out
+    if rows is None:
+        raise ValueError(f"K2 needs a hidden width whose 4-row tile fits in "
+                         f"{SMEM_BYTES} bytes of shared memory; got H={w}, "
+                         f"{x.dtype}")
+    return _launch(fused_ffn_quant, x, stream, x, None, counts, act, rows)
 
 
 fused_ffn_quant.launches = 0
+
+
+def tile_rows_w8a8(h):
+    """Rows per K3 block: the largest of 16, 8, 4 whose int8 x, float32
+    hidden, int8 hidden and two row scales fit in shared memory; None if
+    not even 4 fit."""
+    for rows in (16, 8, 4):
+        if rows * (6 * h + 8) <= SMEM_BYTES:
+            return rows
+    return None
+
+
+def fused_ffn_w8a8(x, stream: FusedFFNStream, counts=None,
+                   activation_fn=gelu):
+    """The fused FFN with both contractions int8 x int8 -> int32 (W8A8 /
+    W4A8): x is quantized per row here, the float32 hidden is re-quantized
+    per row inside the kernel. Same rows and signature as
+    `fused_ffn_quant`. CPU tensors run the plain twin; CUDA tensors run
+    kernel K3, and anything the kernel does not take raises."""
+    _check_x("fused_ffn_w8a8", x, stream)
+    if x.device.type == "cpu":
+        return fused_ffn_w8a8_reference(x, stream, counts, activation_fn)
+    act = kernel_code(activation_fn)
+    w = _check_cuda_stream(x, stream)
+    rows = tile_rows_w8a8(w)
+    if rows is None or stream.kr % 4 or \
+            stream.k % (8 if stream.bits == 4 else 4):
+        raise ValueError(f"K3 needs Kr % 4 == 0, K % 4 == 0 (K % 8 for "
+                         f"INT4) and a hidden width whose 4-row tile fits "
+                         f"in {SMEM_BYTES} bytes of shared memory; got "
+                         f"Kr={stream.kr}, K={stream.k}, H={w}")
+    xq, sx = quantize_activations(x)
+    return _launch(fused_ffn_w8a8, x, stream, xq, sx, counts, act, rows)
+
+
+fused_ffn_w8a8.launches = 0
+
+
+def fused_swiglu_quant(x, stream: FusedFFNStream, counts=None,
+                       activation_fn=silu):
+    """out[e] = (act(x[e] @ W1) * (x[e] @ W2)) @ W3 in one kernel over the
+    `prepare_fused_swiglu` stream, no biases; the hidden is rounded to x's
+    dtype as in the Pallas kernel. Same rows as `fused_ffn_quant`. CPU
+    tensors run the plain twin; CUDA tensors run kernel K4, and anything
+    the kernel does not take raises."""
+    _check_x("fused_swiglu_quant", x, stream)
+    if x.device.type == "cpu":
+        return fused_swiglu_quant_reference(x, stream, counts, activation_fn)
+    act = kernel_code(activation_fn)
+    w = _check_cuda_stream(x, stream)
+    rows = tile_rows(w, x.element_size())
+    if rows is None:
+        raise ValueError(f"K4 needs a hidden width whose 4-row tile fits in "
+                         f"{SMEM_BYTES} bytes of shared memory; got H={w}, "
+                         f"{x.dtype}")
+    return _launch(fused_swiglu_quant, x, stream, x, None, counts, act, rows)
+
+
+fused_swiglu_quant.launches = 0

@@ -92,13 +92,19 @@ def quantized_ffn(x, params, ctx, activation_fn, output_dim):
     if stream is not None and stream.n >= output_dim:
         out = fused_ffn_quant(x, stream, counts, activation_fn=activation_fn)
         return out[..., :output_dim]
+    return two_call_ffn(grouped_gemm_quant, x, params, counts, activation_fn,
+                        output_dim)
 
+
+def two_call_ffn(gemm, x, params, counts, activation_fn, output_dim):
+    """fc2(act(fc1(x) + b1)) + b2 with one grouped GEMM per layer (K1 or
+    K5); bias and activation in x's dtype between the calls."""
     fc1_b, fc2_b = params.get("fc1_b"), params.get("fc2_b")
-    y = grouped_gemm_quant(x, params["fc1_w"], counts)
+    y = gemm(x, params["fc1_w"], counts)
     if fc1_b is not None:
         y = y + fc1_b.to(y.dtype)[:, None, :]
     y = activation_fn(y)
-    y = grouped_gemm_quant(y, params["fc2_w"], counts)
+    y = gemm(y, params["fc2_w"], counts)
     if fc2_b is not None:
         bias = fc2_b.to(y.dtype)[:, None, :]
         if bias.shape[-1] != output_dim:

@@ -8,6 +8,10 @@ along the contraction axis, per contiguous K-block (`blocks`): packed row
 r of a block holds w[r] in the low nibble and w[r + Kb/2] in the high
 nibble. The packing is byte-identical to the JAX package's, so weights
 quantized there load here unchanged.
+
+`quantize_activations` is the per-row INT8 activation quantizer of the
+W8A8 path (counterpart: tutel_tpu/ops/w8a8_pallas.py:38), and `int_bmm`
+the exact integer product the W8A8 twins use.
 """
 
 import dataclasses
@@ -109,3 +113,23 @@ def quantize_expert_params(params, bits=8, keys=("fc1_w", "fc2_w",
         else:
             out[name] = p
     return out
+
+
+def quantize_activations(x):
+    """Symmetric per-row INT8 over the last axis: (q int8, scales f32
+    [..., 1]) with x ~= q * scales; an all-zero row gets scale 1."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: on CUDA, division by a Python scalar multiplies by
+    # its reciprocal, which can miss the quotient (and K3's scale) by an ulp
+    scales = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                         torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scales), -128, 127).to(torch.int8)
+    return q, scales
+
+
+def int_bmm(a, b):
+    """Exact batched product of integer-valued tensors, as float32: the
+    sums run in float64, which holds every int8 x int8 sum of up to 2**38
+    terms exactly (the kernels sum in int32)."""
+    return torch.bmm(a.double(), b.double()).float()

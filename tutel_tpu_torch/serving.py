@@ -22,7 +22,8 @@ embedding vectors:
 
 Quantized expert params are fused into the single-kernel weight stream
 on construction (`auto_fuse=True`), so a decode step runs the fused
-kernel K2; with `auto_fuse=False` it runs K1 twice.
+kernel K2 (K3 for W4A8/W8A8 experts, `activation_bits=8`); with
+`auto_fuse=False` it runs K1 twice (K5 twice).
 Inference routing is deterministic, so unlike the JAX engine no key chain
 is carried.
 
@@ -32,7 +33,9 @@ cache; admissions prefill their prompts (grouped by padded length) and
 join; chunks of decode steps run over every slot, with greedy or sampled
 token selection and optional speculative MoE capacity with replay. Each
 decode step runs kernels K6 and K8, each prefill chunk K7, and the INT4
-MoE blocks K2. The caches are updated in place. The JAX engine's jit
+MoE blocks K2 (K4 for SwiGLU `llama_ffn` experts, whose stream
+`auto_fuse` attaches the same way). The caches are updated in place.
+The JAX engine's jit
 caches and XLA compiler options (`_chunk_compiler_options`) have no
 counterpart in eager PyTorch.
 """
