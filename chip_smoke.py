@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the CUDA kernels from csrc/*.cu with nvcc, all at once, timed;
+  2. builds the CUDA kernels from csrc/*.cu with nvcc, and the sources
+     the runtime kernels of step 4 generate, all at once, timed;
   3. holds each expert kernel against its plain PyTorch twin on the card
      in bfloat16, and times kernel, twin and a bf16 torch.bmm yardstick
      over the dequantized weights with CUDA events: K1 grouped_gemm_quant
@@ -20,24 +21,36 @@ In order, it
      live, and at K < H in INT8 with gelu; K4 fused_swiglu_quant at the
      SwiGLU LM's expert shapes (32 experts, 1024 x 2048 x 1024, INT4, silu;
      a decode step and a prefill chunk of 16,384 routed rows);
-  4. serves 512 requests of 8-32 decode steps through MoeDecodeEngine at
+  4. holds the runtime kernels against their twins, timed the same way
+     beside one PyTorch call: K9 jit.inject_kernel on a tiled x * s + 1
+     injected as CUDA source (float32, [256, 128] and [16384, 2048];
+     torch.addcmul), and K10 jit.pallas_kernel on squared ReLU and on the
+     tanh-GELU formula lifted from torch ops (bfloat16 at the decode
+     server's hidden [128, 32, 2048] and an LM prefill chunk's
+     [32, 8192, 2048], float32 at [128, 32, 2048]; F.gelu for tanh-GELU);
+     then calls the injected kernel on four [16384, 2048] inputs as a
+     user would, counting its launches;
+  5. serves 512 requests of 8-32 decode steps through MoeDecodeEngine at
      128 experts x 2048 x 2048, top-2, dropless, INT4, bfloat16, batch 256,
      residual_norm (the shape of benchmarks/bench_dropless_decode.py), with
      the fused kernel (auto_fuse=True), then a shorter run on the two-call
      path (auto_fuse=False); then both again with activation_bits=8 (W4A8,
      the w4a8 rows of benchmarks/round5_tpu_sweep.sh), whose fused run may
-     launch only K3 and whose two-call run only K5; each run counts every
-     kernel's launches;
-  5. checks small engines on the card against the same engines on the CPU
-     (INT4 weight-only within 1e-4, W4A8 within 2e-3);
-  6. holds the attention kernels K6 decode_attn and K7 prefill_attn and the
+     launch only K3 and whose two-call run only K5; then 128 requests on
+     the two-call path with squared ReLU lifted by jit.pallas_kernel as
+     the experts' activation (K1, K10, K1 each step, and nothing else);
+     each run counts every kernel's launches;
+  6. checks small engines on the card against the same engines on the CPU
+     (INT4 weight-only within 1e-4, also two-call with the lifted squared
+     ReLU; W4A8 within 2e-3);
+  7. holds the attention kernels K6 decode_attn and K7 prefill_attn and the
      KV-cache write K8 against their twins at the LM server's shapes (64
      rows, 8 heads of 128, 2 KV groups, cache 2048; K6 with fresh rows over
      the whole window, K7 at a 128-query chunk starting at 1536, K8 as one
      step's 16 tensors), in INT8, bfloat16 and INT4 caches, and times each
      with its twin and a PyTorch yardstick (scaled_dot_product_attention,
      the 16 index_put_ calls);
-  7. serves 64 prompts of 1664 tokens, 320 new tokens each, through
+  8. serves 64 prompts of 1664 tokens, 320 new tokens each, through
      LmDecodeEngine over a TransformerMoE at full width (vocabulary 32768,
      model_dim 1024, 8 heads, 2 KV heads, 4 layers with MoE in 1 and 3, 32
      INT4 experts of 2048, top-2, dropless, INT8 KV cache, bfloat16; the
@@ -47,12 +60,12 @@ In order, it
      kernels with the most device time); then the same for the same LM
      with SwiGLU experts (expert_type="llama_ffn", 32 INT4 experts of
      2048), whose serve may launch only K4, K6, K7 and K8;
-  8. checks small LM engines on the card against the same engines on the
+  9. checks small LM engines on the card against the same engines on the
      CPU (float32; two-layer experts with INT8 and float caches, SwiGLU
      experts with an INT8 cache): the same greedy tokens, and apply_decode
      logits within 1e-4;
-  9. prints one JSON line per check and phase, the {"kernels": [...]} line,
-     and last {"ok": true, "device": {...}}.
+ 10. prints one JSON line per check and phase, the {"kernels": [...]} line
+     (all ten kernels), and last {"ok": true, "device": {...}}.
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
@@ -70,7 +83,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from tutel_tpu_torch import moe  # noqa: E402
+from tutel_tpu_torch import jit, moe  # noqa: E402
 from tutel_tpu_torch.csrc import build  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoE  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoEConfig  # noqa: E402
@@ -83,12 +96,16 @@ from tutel_tpu_torch.serving import MoeDecodeEngine, Request  # noqa: E402
 
 SEED = 0
 BF16_TOL = 2e-2            # max |kernel - twin| / max |twin|, bfloat16
+# the same in float32: CUDA's expf/tanhf/erff may differ from PyTorch's by
+# an ulp or so
+F32_TOL = 1e-5
 SMALL_TOL = 1e-4           # GPU engine vs CPU engine, float32
 # the W4A8 engine: a last-bit difference of a state between the devices
 # can move one int8 activation of a later step by one quantization step
 W8A8_TOL = 2e-3
 BF16_PEAK = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12        # H100 SXM dense int8 tensor-core OP/s
+F32_PEAK = 67e12           # H100 SXM float32 FLOP/s outside the tensor cores
 REPS = 20
 
 
@@ -119,6 +136,24 @@ def median_ms(fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, symbol, reps=REPS):
+    """Mean device time of the kernels whose name holds `symbol`, from
+    torch.profiler over `reps` calls: the wrapper's host time, which the
+    event-timed median_ms includes, is left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if str(e.device_type).endswith("CUDA") and symbol in e.name]
+    if not spans:
+        raise RuntimeError(f"the profiler saw no launch of {symbol}")
+    return sum(spans) / 1e3 / len(spans)
 
 
 def errors(got, ref, counts):
@@ -314,6 +349,90 @@ def check_swiglu_kernel(shape, bandwidth):
     return r
 
 
+# -- the runtime kernels: K9, K10 --------------------------------------------
+
+def scale_source(rows, cols, tile_rows):
+    """A user's kernel for K9: `o = x * s[0] + 1` over [rows, cols]
+    float32 (test_facade's injected kernel), one tile of tile_rows rows per
+    block, 16-byte loads."""
+    return f"""
+// [thread_extent] blockIdx.x = {rows // tile_rows}
+// [thread_extent] threadIdx.x = 256
+__global__ void __launch_bounds__(256)
+scale_plus_one(const float4* __restrict__ x, const float* __restrict__ s,
+               float4* __restrict__ o) {{
+  const float k = s[0];
+  const long long base = (long long)blockIdx.x * {tile_rows * cols // 4};
+  for (int i = threadIdx.x; i < {tile_rows * cols // 4}; i += blockDim.x) {{
+    float4 v = x[base + i];
+    v.x = v.x * k + 1.f; v.y = v.y * k + 1.f;
+    v.z = v.z * k + 1.f; v.w = v.w * k + 1.f;
+    o[base + i] = v;
+  }}
+}}
+"""
+
+
+def scale_plus_one(x, s):
+    return x * s[0, 0] + 1
+
+
+def inject_scale(rows, cols, tile_rows):
+    return jit.inject_kernel(scale_source(rows, cols, tile_rows),
+                             out_shape=((rows, cols), torch.float32),
+                             plain=scale_plus_one)
+
+
+def check_inject_kernel(f, rows, cols, bandwidth):
+    """K9 against its twin: each element read and written once, a multiply
+    and an add on it."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    x = torch.randn(rows, cols, generator=g, device="cuda")
+    s = torch.full((1, 1), 3.0, device="cuda")
+    got, ref = f(x, s), scale_plus_one(x, s)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, ref)
+    one = torch.ones((), device="cuda")
+    r = {"name": "inject_kernel", "shape": f"{rows}x{cols}",
+         "dtype": "float32", "max_abs_err": abs_err, "max_rel_err": err,
+         "tol": F32_TOL, "ms": median_ms(lambda: f(x, s)),
+         "device_ms": device_ms(lambda: f(x, s), "scale_plus_one"),
+         "plain_ms": median_ms(lambda: scale_plus_one(x, s)),
+         "library_ms": median_ms(lambda: torch.addcmul(one, x, s)),
+         **bound(2 * x.numel() * 4 + 4, 2 * x.numel(), bandwidth, F32_PEAK)}
+    if not err <= F32_TOL:
+        raise RuntimeError(f"inject_kernel at {rows}x{cols} disagrees with "
+                           f"its twin: {err} > {F32_TOL}")
+    return r
+
+
+def check_pallas_kernel(label, kernel, shape, dtype, bandwidth, library):
+    """K10 against its twin fn(x), which rounds after every op where the
+    kernel rounds once; one operation per lifted step and element bounds
+    it from the arithmetic side."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    got, ref = kernel(x), kernel.fn(x)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, ref)
+    del got, ref
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    r = {"name": "pallas_kernel", "function": label,
+         "shape": f"{label}_{str(dtype)[6:]}_{'x'.join(map(str, shape))}",
+         "max_abs_err": abs_err, "max_rel_err": err, "tol": tol,
+         "ms": median_ms(lambda: kernel(x)),
+         "device_ms": device_ms(lambda: kernel(x), "tt_elementwise"),
+         "plain_ms": median_ms(lambda: kernel.fn(x)),
+         "library_ms": None if library is None else median_ms(
+             lambda: library(x)),
+         **bound(2 * x.numel() * x.element_size(),
+                 x.numel() * len(kernel.lifted.steps), bandwidth, F32_PEAK)}
+    if not err <= tol:
+        raise RuntimeError(f"pallas_kernel ({label}) at {shape} disagrees "
+                           f"with its twin: {err} > {tol}")
+    return r
+
+
 def serve(layer, params, n_requests, steps, auto_fuse, seed):
     """Run requests through a fresh engine and check every output;
     returns (engine, seconds)."""
@@ -340,14 +459,16 @@ def serve(layer, params, n_requests, steps, auto_fuse, seed):
     return eng, seconds
 
 
-def small_engine_check(activation_bits=0, tol=SMALL_TOL):
+def small_engine_check(activation_bits=0, tol=SMALL_TOL, activation_fn=None):
     """A small INT4 engine on the card (kernels) against the same engine on
     the CPU (plain twins), float32, fused and two-call paths; W4A8 with
-    activation_bits=8."""
+    activation_bits=8. A lifted activation_fn runs the two-call path only:
+    the fused kernels take activation codes."""
     kw = dict(gate_type={"type": "top", "k": 2, "capacity_factor": 0.0},
               experts={"type": "ffn", "num_experts_per_device": 8,
                        "hidden_size_per_expert": 512,
-                       "activation_bits": activation_bits},
+                       "activation_bits": activation_bits,
+                       "activation_fn": activation_fn},     # None: relu
               model_dim=256)
     cpu_layer, gpu_layer = (moe.moe_layer(device=d, **kw)
                             for d in ("cpu", "cuda"))
@@ -359,7 +480,7 @@ def small_engine_check(activation_bits=0, tol=SMALL_TOL):
     states = np.random.default_rng(SEED).standard_normal((24, 256)).astype(
         np.float32)
     worst = 0.0
-    for auto_fuse in (True, False):
+    for auto_fuse in (True, False) if activation_fn is None else (False,):
         finals = []
         for layer, p in ((cpu_layer, params), (gpu_layer, gpu_params)):
             eng = MoeDecodeEngine(layer, p, max_batch=16, auto_fuse=auto_fuse,
@@ -569,7 +690,14 @@ KERNELS = {"grouped_gemm_quant": gq.grouped_gemm_quant,
            "fused_swiglu_quant": fused_ffn.fused_swiglu_quant,
            "grouped_gemm_w8a8": w8a8.grouped_gemm_w8a8,
            "decode_attn": da.decode_attn, "prefill_attn": da.prefill_attn,
-           "kv_write": kv_write.write_step}
+           "kv_write": kv_write.write_step,
+           "inject_kernel": jit.inject_kernel,
+           "pallas_kernel": jit.pallas_kernel}
+# K10's functions: squared ReLU (Primer; Nemotron-4) and tanh-GELU written
+# from torch ops
+SQUARED_RELU = jit.pallas_kernel(lambda v: torch.relu(v) ** 2)
+GELU_TANH = jit.pallas_kernel(lambda v: 0.5 * v * (1 + torch.tanh(
+    0.7978845608 * (v + 0.044715 * v ** 3))))
 
 
 def reset_launches():
@@ -747,8 +875,14 @@ def main():
     print(smi, flush=True)
     bandwidth = hbm_bytes_per_s(smi)
 
+    # K9 at test_facade's [256, 128] (2 tiles of 128 rows) and at full
+    # width (1024 tiles of 16 rows)
+    injected = {(256, 128): inject_scale(256, 128, 128),
+                (16384, 2048): inject_scale(16384, 2048, 16)}
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all(build.SOURCES, [f.source for f in injected.values()] + [
+        k.cuda_source(d) for k in (SQUARED_RELU, GELU_TANH)
+        for d in (torch.bfloat16, torch.float32)])
     for name in build.SOURCES:
         build.load(name)
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}),
@@ -802,17 +936,49 @@ def main():
         print(json.dumps(r), flush=True)
         checks[(r["name"], r["shape"])] = r
         torch.cuda.empty_cache()
+    # K9 and K10 at their shapes, each beside one PyTorch call
+    for (rows, cols), f in injected.items():
+        r = check_inject_kernel(f, rows, cols, bandwidth)
+        print(json.dumps(r), flush=True)
+        checks[(r["name"], r["shape"])] = r
+    for shape, dtype in (((128, 32, 2048), torch.bfloat16),
+                         ((32, 8192, 2048), torch.bfloat16),
+                         ((128, 32, 2048), torch.float32)):
+        for label, kernel, library in (("squared_relu", SQUARED_RELU, None),
+                                       ("gelu_tanh", GELU_TANH,
+                                        activations.gelu)):
+            r = check_pallas_kernel(label, kernel, shape, dtype, bandwidth,
+                                    library)
+            print(json.dumps(r), flush=True)
+            checks[(r["name"], r["shape"])] = r
+        torch.cuda.empty_cache()
+    # K9's path: a user's injected kernel called on four inputs
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    s = torch.full((1, 1), -0.5, device="cuda")
+    reset_launches()
+    for _ in range(4):
+        x = torch.randn(16384, 2048, generator=g, device="cuda")
+        if rel_err(injected[(16384, 2048)](x, s),
+                   scale_plus_one(x, s))[1] > F32_TOL:
+            raise RuntimeError("the injected kernel's output is wrong")
+    counts = read_launches("inject", {"inject_kernel"})
+    print(json.dumps({"phase": "inject", "calls": 4, "launches": counts}),
+          flush=True)
+    launches = {"inject_kernel": counts["inject_kernel"]}
+    del x
+    torch.cuda.empty_cache()
 
     gate = {"type": "top", "k": 2, "capacity_factor": 0.0}
 
-    def decode_layer(activation_bits):
+    def decode_layer(activation_bits, activation_fn=None):    # None: relu
         return moe.moe_layer(
             gate_type=gate, model_dim=2048, dtype=torch.bfloat16,
             device="cuda",
             experts={"type": "ffn", "num_experts_per_device": 128,
                      "hidden_size_per_expert": 2048, "has_fc1_bias": False,
                      "has_fc2_bias": False,
-                     "activation_bits": activation_bits})
+                     "activation_bits": activation_bits,
+                     "activation_fn": activation_fn})
 
     layer, layer_w4a8 = decode_layer(0), decode_layer(8)
     params = layer.init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -822,7 +988,6 @@ def main():
         serve(lay, params, 16, (2, 2), True, SEED + 7)
         serve(lay, params, 16, (2, 2), False, SEED + 7)
 
-    launches = {}
     for path, lay, auto_fuse, n_req, runs in (
             ("fused", layer, True, 512, "fused_ffn_quant"),
             ("two_call", layer, False, 128, "grouped_gemm_quant"),
@@ -839,13 +1004,39 @@ def main():
             "launches": counts, "card": smi}), flush=True)
         launches[runs] = counts[runs]
 
+    # the two-call path with squared ReLU lifted by jit.pallas_kernel: each
+    # step K1, K10, K1 (the fused kernels take activation codes only)
+    layer_jit = decode_layer(0, SQUARED_RELU)
+    serve(layer_jit, params, 16, (2, 2), False, SEED + 7)       # warm-up
+    reset_launches()
+    eng, seconds = serve(layer_jit, params, 128, (8, 32), False, SEED)
+    counts = read_launches("jit_serve", {"grouped_gemm_quant",
+                                         "pallas_kernel"})
+    if counts["grouped_gemm_quant"] != 2 * counts["pallas_kernel"]:
+        raise RuntimeError(f"jit_serve launched {counts}: expected two K1 "
+                           f"launches per K10 launch")
+    print(json.dumps({
+        "phase": "jit_serve", "path": "two_call", "activation": "squared_relu",
+        "requests": 128, "tokens": eng.stats["tokens"],
+        "decode_steps": eng.stats["steps"],
+        "spec_retries": eng.stats["spec_retries"], "seconds": seconds,
+        "tokens_per_s": eng.stats["tokens"] / seconds,
+        "ms_per_decode_step": 1e3 * seconds / eng.stats["steps"],
+        "launches": counts, "card": smi}), flush=True)
+    launches["pallas_kernel"] = counts["pallas_kernel"]
+
     print(json.dumps({"phase": "small_engine_vs_cpu",
                       "max_rel_err": small_engine_check(), "tol": SMALL_TOL}),
+          flush=True)
+    print(json.dumps({"phase": "small_lifted_engine_vs_cpu",
+                      "activation": "squared_relu", "path": "two_call",
+                      "max_rel_err": small_engine_check(
+                          activation_fn=SQUARED_RELU), "tol": SMALL_TOL}),
           flush=True)
     print(json.dumps({"phase": "small_w4a8_engine_vs_cpu",
                       "max_rel_err": small_engine_check(8, W8A8_TOL),
                       "tol": W8A8_TOL}), flush=True)
-    del layer, layer_w4a8, params, eng
+    del layer, layer_w4a8, layer_jit, params, eng
     torch.cuda.empty_cache()
 
     for mode in ("int8", "bfloat16", "int4"):
@@ -915,7 +1106,13 @@ def main():
         "prefill_attn": ("tutel_tpu_torch/csrc/prefill_attn.cu",
                          "tutel_tpu/ops/decode_attn_pallas.py:493", "int8"),
         "kv_write": ("tutel_tpu_torch/csrc/kv_write.cu",
-                     "tutel_tpu/ops/kv_write_pallas.py:146", "int8")}
+                     "tutel_tpu/ops/kv_write_pallas.py:146", "int8"),
+        # K9: the trampoline, build and launch of a user's source
+        "inject_kernel": ("tutel_tpu_torch/jit.py", "tutel_tpu/jit.py:29",
+                          "16384x2048"),
+        "pallas_kernel": ("tutel_tpu_torch/csrc/elementwise.cu",
+                          "tutel_tpu/jit.py:74",
+                          "squared_relu_bfloat16_128x32x2048")}
     kernels = []
     for name, (source, replaces, shape) in sources.items():
         r = checks[(name, shape)]

@@ -10,6 +10,12 @@ library is never loaded.
 
 `build_all()` starts one nvcc per source at once and waits for all of
 them; `load(name)` builds one if needed and returns the loaded library.
+
+A second way in takes a source given as text at run time (`jit.py`'s
+injected and lifted kernels): `load_source(text, ...)` compiles it with
+the same flags into `build/kernels/jit-<hash>.so`, the hash covering the
+text and the flags, and loads it once per process; `build_all(texts=...)`
+builds such texts in parallel with the fixed sources.
 """
 
 import ctypes
@@ -75,15 +81,27 @@ def library_path(name):
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _start(name):
-    """Start nvcc for one source; returns (process, tmp path, final path)
-    or None when the library is already built."""
-    out = library_path(name)
+def source_name(text):
+    """The library name of a source given as text: jit-<hash of the flags
+    and the text>."""
+    digest = hashlib.sha1("\0".join((*NVCC_FLAGS, text)).encode())
+    return "jit-" + digest.hexdigest()[:12]
+
+
+def _start(src, out):
+    """Start nvcc on the source file `src` (a path, or the text of a source
+    given at run time, written beside `out` as a .cu file); returns
+    (process, tmp path, final path) or None when `out` is already built."""
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    if isinstance(src, str):
+        part = out.with_suffix(f".{os.getpid()}.part")
+        part.write_text(src)
+        os.replace(part, out.with_suffix(".cu"))
+        src = out.with_suffix(".cu")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -98,9 +116,14 @@ def _finish(name, started):
     os.replace(tmp, out)       # atomic: a concurrent build sees all or none
 
 
-def build_all(names=SOURCES):
-    """Compile every named source that is not built yet, all in parallel."""
-    started = {name: _start(name) for name in names}
+def build_all(names=SOURCES, texts=()):
+    """Compile every named source and every source text that is not built
+    yet, all in parallel."""
+    started = {name: _start(CSRC / f"{name}.cu", library_path(name))
+               for name in names}
+    for text in texts:
+        name = source_name(text)
+        started[name] = _start(text, BUILD_DIR / f"{name}.so")
     errors = []
     for name, s in started.items():
         if s is None:
@@ -113,19 +136,37 @@ def build_all(names=SOURCES):
         raise RuntimeError("\n".join(errors))
 
 
+def _open(path, entry, argtypes):
+    lib = ctypes.CDLL(str(path))
+    getattr(lib, entry).argtypes = argtypes
+    getattr(lib, entry).restype = ctypes.c_int
+    lib.tt_error_string.argtypes = [ctypes.c_int]
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load(name):
     """The ctypes library for `csrc/<name>.cu`, built on first use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build_all((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            entry, argtypes = SIGNATURES[name]
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = ctypes.c_int
-            lib.tt_error_string.argtypes = [ctypes.c_int]
-            lib.tt_error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
+            lib = _loaded[name] = _open(library_path(name), *SIGNATURES[name])
+        return lib
+
+
+def load_source(text, entry, argtypes):
+    """The ctypes library compiled from the CUDA source `text`, built on
+    first use and loaded once per process; `entry` (a C function of the
+    text returning a cudaError_t) gets `argtypes`. The text must define
+    `tt_error_string`, as every source in csrc/ does."""
+    name = source_name(text)
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all((), (text,))
+            lib = _loaded[name] = _open(BUILD_DIR / f"{name}.so", entry,
+                                        argtypes)
         return lib
 
 
