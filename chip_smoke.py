@@ -8,7 +8,11 @@ Run from the root of a checkout, with no arguments:
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from csrc/*.cu with nvcc, and the sources
-     the runtime kernels of step 4 generate, all at once, timed;
+     the runtime kernels of step 4 generate, all at once, timed; beside
+     them K7's source once more with -Xptxas -v (registers, spills and
+     shared memory of each template instance), and counts the
+     tensor-core instructions (HMMA, HGMMA) in K7's library with
+     cuobjdump -sass, failing if there are none;
   3. holds each expert kernel against its plain PyTorch twin on the card
      in bfloat16, and times kernel, twin and a bf16 torch.bmm yardstick
      over the dequantized weights with CUDA events: K1 grouped_gemm_quant
@@ -49,7 +53,9 @@ In order, it
      the whole window, K7 at a 128-query chunk starting at 1536, K8 as one
      step's 16 tensors), in INT8, bfloat16 and INT4 caches, and times each
      with its twin and a PyTorch yardstick (scaled_dot_product_attention,
-     the 16 index_put_ calls);
+     the 16 index_put_ calls); K7 also with float32 queries (its CUDA-core
+     kernel) over the INT8 cache, and with its achieved TFLOP/s and share
+     of the bound;
   8. serves 64 prompts of 1664 tokens, 320 new tokens each, through
      LmDecodeEngine over a TransformerMoE at full width (vocabulary 32768,
      model_dim 1024, 8 heads, 2 KV heads, 4 layers with MoE in 1 and 3, 32
@@ -57,9 +63,11 @@ In order, it
      round-5 2k serving configuration of benchmarks/bench_lm_serving.py),
      after a short warm-up run, counting each kernel's launches; then
      traces one decode chunk with torch.profiler (device busy share, the
-     kernels with the most device time); then the same for the same LM
-     with SwiGLU experts (expert_type="llama_ffn", 32 INT4 experts of
-     2048), whose serve may launch only K4, K6, K7 and K8;
+     kernels with the most device time) and one admission and prefill of
+     the 64 prompts (K7's and the expert kernel's device time in the
+     whole prefill, per launch, the busy share, the top kernels); then the
+     same for the same LM with SwiGLU experts (expert_type="llama_ffn", 32
+     INT4 experts of 2048), whose serve may launch only K4, K6, K7 and K8;
   9. checks small LM engines on the card against the same engines on the
      CPU (float32; two-layer experts with INT8 and float caches, SwiGLU
      experts with an INT8 cache): the same greedy tokens, and apply_decode
@@ -73,6 +81,8 @@ line; without a GPU it exits non-zero at once.
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,7 +149,8 @@ def median_ms(fn, reps=REPS):
 
 
 def device_ms(fn, symbol, reps=REPS):
-    """Mean device time of the kernels whose name holds `symbol`, from
+    """Mean device time of the kernels whose name holds `symbol` (per
+    launch), or of all the call's kernels with symbol=None (per call), from
     torch.profiler over `reps` calls: the wrapper's host time, which the
     event-timed median_ms includes, is left out."""
     from torch.profiler import ProfilerActivity, profile
@@ -150,10 +161,78 @@ def device_ms(fn, symbol, reps=REPS):
             fn()
         torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if str(e.device_type).endswith("CUDA") and symbol in e.name]
+             if str(e.device_type).endswith("CUDA")
+             and (symbol is None or symbol in e.name)]
     if not spans:
         raise RuntimeError(f"the profiler saw no launch of {symbol}")
-    return sum(spans) / 1e3 / len(spans)
+    return sum(spans) / 1e3 / (reps if symbol is None else len(spans))
+
+
+def start_ptxas(name="prefill_attn"):
+    """Start nvcc on csrc/<name>.cu once more with -Xptxas -v (into a
+    library of its own, beside the real build); ptxas_report reads it."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / f"{name}-ptxas.{os.getpid()}.so"
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+         str(build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+
+
+def instance(mangled):
+    """A K7 kernel instance's short name from its mangled symbol:
+    prefill_attn_kernel_tc<MODE, HD> or prefill_attn_kernel<float, MODE,
+    HD>."""
+    args = re.findall(r"Li(\d+)E", mangled)
+    if "prefill_attn_kernel_tc" in mangled:
+        return f"prefill_attn_kernel_tc<{', '.join(args)}>"
+    return f"prefill_attn_kernel<float, {', '.join(args)}>"
+
+
+def ptxas_report(started):
+    """Registers and spill bytes of each kernel instance, from ptxas -v."""
+    proc, out = started
+    log, _ = proc.communicate()
+    if out.exists():
+        out.unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log}")
+    report, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = report.setdefault(instance(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return report
+
+
+def sass_counts(name="prefill_attn", opcodes=("HMMA", "HGMMA")):
+    """Tensor-core instructions in each kernel of a built library, from
+    cuobjdump -sass; raises unless every tensor-core instance (and so the
+    library) has some."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        counts[instance(part.split(None, 1)[0])] = {
+            op: len(re.findall(rf"\b{op}\.", part)) for op in opcodes}
+    total = sum(sum(c.values()) for c in counts.values())
+    idle = [k for k, c in counts.items()
+            if k.startswith("prefill_attn_kernel_tc") and not sum(c.values())]
+    if total == 0 or idle:
+        raise RuntimeError(f"{name}: no tensor-core instruction in {idle or 'the library'}")
+    return {"total": {op: sum(c[op] for c in counts.values())
+                      for op in opcodes}, "per_kernel": counts}
 
 
 def errors(got, ref, counts):
@@ -504,9 +583,9 @@ ATT = dict(b=64, nh=8, kvh=2, hd=128, t=2048)
 BYTES_PER_VALUE = {"int8": 1.0, "bfloat16": 2.0, "int4": 0.5}
 
 
-def kv_cache(g, b, t, kvh, hd, mode):
+def kv_cache(g, b, t, kvh, hd, mode, deq_dtype=torch.bfloat16):
     """Random K or V cache of b x t rows in the stored form of `mode`:
-    (values, scales or None, the same values dequantized to bf16 as
+    (values, scales or None, the same values dequantized to deq_dtype as
     [B, KVH, T, HD])."""
     x = torch.randn(b * t, kvh, hd, generator=g, device="cuda")
     if mode == "bfloat16":
@@ -518,7 +597,7 @@ def kv_cache(g, b, t, kvh, hd, mode):
     vals, sc = fn(x)
     ints = vals if mode == "int8" else da.unpack_int4(vals)
     deq = (ints.float().reshape(b * t, kvh, hd) * sc[..., None]).to(
-        torch.bfloat16)
+        deq_dtype)
     return (vals.reshape(b, t, -1).contiguous(),
             sc.reshape(b, t, kvh).transpose(1, 2).contiguous(),
             deq.reshape(b, t, kvh, hd).transpose(1, 2))
@@ -529,11 +608,15 @@ def rel_err(got, ref):
     return diff, diff / float(ref.float().abs().max())
 
 
-def sdpa_ms(q, k_heads, v_heads, mask):
+def sdpa_ms(q, k_heads, v_heads, mask, profiled=False):
     """scaled_dot_product_attention over K/V already tiled to the query
-    heads (head h reads group h % KVH: `.repeat`, not repeat_interleave)."""
-    f = torch.nn.functional.scaled_dot_product_attention
-    return median_ms(lambda: f(q, k_heads, v_heads, attn_mask=mask))
+    heads (head h reads group h % KVH: `.repeat`, not repeat_interleave);
+    with profiled=True (event ms, device ms of all its kernels)."""
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k_heads, v_heads, attn_mask=mask)
+    ms = median_ms(call)
+    return (ms, device_ms(call, None)) if profiled else ms
 
 
 def check_decode_attn(mode, bandwidth, b=ATT["b"]):
@@ -581,15 +664,17 @@ def check_decode_attn(mode, bandwidth, b=ATT["b"]):
     return r
 
 
-def check_prefill_attn(mode, bandwidth, tq=128, start=1536):
-    """K7 for the last prompt chunk of a 1664-token prefill."""
+def check_prefill_attn(mode, bandwidth, tq=128, start=1536,
+                       dtype=torch.bfloat16):
+    """K7 for the last prompt chunk of a 1664-token prefill: bfloat16
+    queries run its tensor-core kernel, float32 ones its CUDA-core kernel
+    (held to the float32 rate outside the tensor cores)."""
     b, nh, kvh, hd, t = (ATT[k] for k in ("b", "nh", "kvh", "hd", "t"))
     w = start + tq
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    q = torch.randn(b, tq, nh, hd, generator=g, device="cuda").to(
-        torch.bfloat16)
-    k, ks, kd = kv_cache(g, b, t, kvh, hd, mode)
-    v, vs, vd = kv_cache(g, b, t, kvh, hd, mode)
+    q = torch.randn(b, tq, nh, hd, generator=g, device="cuda").to(dtype)
+    k, ks, kd = kv_cache(g, b, t, kvh, hd, mode, dtype)
+    v, vs, vd = kv_cache(g, b, t, kvh, hd, mode, dtype)
     kw = dict(k_scale=ks, v_scale=vs, attn_len=w,
               kv_bits=4 if mode == "int4" else 8)
     got = da.prefill_attn(q, k, v, start, **kw)
@@ -598,26 +683,35 @@ def check_prefill_attn(mode, bandwidth, tq=128, start=1536):
     abs_err, err = rel_err(got, ref)
     per_pos = 2 * kvh * hd * BYTES_PER_VALUE[mode] + (
         0 if mode == "bfloat16" else 2 * kvh * 4)
-    moved = b * w * per_pos + 2 * q.numel() * 2
+    moved = b * w * per_pos + 2 * q.numel() * q.element_size()
     live = sum(min(w, start + i + 1) for i in range(tq))  # per (b, head)
     ops = 4 * b * nh * hd * live
     mask = (torch.arange(w, device="cuda")[None, :]
             <= start + torch.arange(tq, device="cuda")[:, None])
     mq = nh // kvh
-    r = {"name": "prefill_attn", "cache": mode, "B": b, "TQ": tq,
-         "start": start, "NH": nh, "KVH": kvh, "HD": hd, "W": w,
-         "max_abs_err": abs_err, "max_rel_err": err, "tol": BF16_TOL,
-         "ms": median_ms(lambda: da.prefill_attn(q, k, v, start, **kw)),
-         "plain_ms": median_ms(
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    ms = median_ms(lambda: da.prefill_attn(q, k, v, start, **kw))
+    r = {"name": "prefill_attn", "cache": mode, "dtype": str(dtype)[6:],
+         "B": b, "TQ": tq, "start": start, "NH": nh, "KVH": kvh, "HD": hd,
+         "W": w, "max_abs_err": abs_err, "max_rel_err": err, "tol": tol,
+         "ms": ms, "plain_ms": median_ms(
              lambda: da.prefill_attn_reference(q, k, v, start, **kw)),
-         **bound(moved, ops, bandwidth)}
-    key = "library_ms" if mode == "bfloat16" else "sdpa_dequant_ms"
-    r[key] = sdpa_ms(q.transpose(1, 2),
-                     kd[:, :, :w].repeat(1, mq, 1, 1),
-                     vd[:, :, :w].repeat(1, mq, 1, 1), mask)
-    if not err <= BF16_TOL:
-        raise RuntimeError(f"prefill_attn ({mode}) disagrees with its twin: "
-                           f"{err} > {BF16_TOL}")
+         **bound(moved, ops, bandwidth,
+                 BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK)}
+    r["tflops"] = ops / (ms * 1e-3) / 1e12
+    r["bound_share"] = r["bound_ms"] / ms
+    # the kernel alone, without the wrapper's host time
+    r["device_ms"] = device_ms(lambda: da.prefill_attn(q, k, v, start, **kw),
+                               "prefill_attn_kernel")
+    r["device_tflops"] = ops / (r["device_ms"] * 1e-3) / 1e12
+    key = ("library_ms" if mode == "bfloat16" and dtype == torch.bfloat16
+           else "sdpa_dequant_ms")
+    r[key], r["sdpa_device_ms"] = sdpa_ms(
+        q.transpose(1, 2), kd[:, :, :w].repeat(1, mq, 1, 1),
+        vd[:, :, :w].repeat(1, mq, 1, 1), mask, profiled=True)
+    if not err <= tol:
+        raise RuntimeError(f"prefill_attn ({mode}, {dtype}) disagrees with "
+                           f"its twin: {err} > {tol}")
     return r
 
 
@@ -754,6 +848,37 @@ def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed):
             "spec_retries": eng.stats["spec_retries"]}
 
 
+# the CUDA symbol of each ported kernel on the LM paths (K7's two kernels,
+# prefill_attn_kernel and prefill_attn_kernel_tc, share the stem)
+SYMBOLS = {"grouped_gemm_quant": "gmm_quant_kernel",
+           "fused_ffn_quant": "fused_ffn_kernel",
+           "fused_swiglu_quant": "fused_swiglu_kernel",
+           "decode_attn": "decode_attn_kernel",
+           "prefill_attn": "prefill_attn_kernel",
+           "kv_write": "kv_write_kernel"}
+
+
+def device_time(prof):
+    """From a torch.profiler trace: (device us by kernel name, launches by
+    kernel name, busy us, span us, device events)."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    busy, cur, by_name, n_by_name = 0.0, None, {}, {}
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        n_by_name[name] = n_by_name.get(name, 0) + 1
+        if cur is None or start > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy += cur[1] - cur[0]
+    return by_name, n_by_name, busy, spans[-1][1] - spans[0][0], len(spans)
+
+
 def lm_profile(model, params, seed, steps=16):
     """One decode chunk of the full-width LM engine (64 slots, 1664-token
     prompts) under torch.profiler: the device's busy share of the chunk's
@@ -773,37 +898,56 @@ def lm_profile(model, params, seed, steps=16):
                              ProfilerActivity.CUDA]) as prof:
         eng.step_chunk(steps)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if str(e.device_type).endswith("CUDA"))
-    if not spans:
-        raise RuntimeError("the profiler recorded no device time")
-    busy, cur, by_name = 0.0, None, {}
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-        if cur is None or start > cur[1]:
-            busy += 0 if cur is None else cur[1] - cur[0]
-            cur = [start, end]
-        else:
-            cur[1] = max(cur[1], end)
-    busy += cur[1] - cur[0]
-    span = spans[-1][1] - spans[0][0]
+    by_name, _, busy, span, events = device_time(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    # device time per step of each ported kernel, found by its CUDA symbol
-    symbols = {"grouped_gemm_quant": "gmm_quant_kernel",
-               "fused_ffn_quant": "fused_ffn_kernel",
-               "fused_swiglu_quant": "fused_swiglu_kernel",
-               "decode_attn": "decode_attn_kernel",
-               "prefill_attn": "prefill_attn_kernel",
-               "kv_write": "kv_write_kernel"}
     ported = {k: sum(t for n, t in by_name.items() if s in n) / 1e3 / steps
-              for k, s in symbols.items()}
-    return {"steps": steps, "device_events": len(spans),
+              for k, s in SYMBOLS.items()}
+    return {"steps": steps, "device_events": events,
             "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
             "busy_share": busy / span,
             "top_kernels_ms_per_step": [[n[:70], t / 1e3 / steps]
                                         for n, t in top],
             "ported_kernels_ms_per_step": ported}
+
+
+def lm_prefill_profile(model, params, seed, ffn_kernel):
+    """One admission and prefill of 64 prompts of 1664 tokens (13 chunks
+    of 128) into a fresh full-width LM engine under torch.profiler: the
+    device time of K7 and of the expert kernel in the whole prefill, in
+    all and per launch, the busy share and the kernels with the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(seed)
+    eng = LmDecodeEngine(model, params, max_batch=64,
+                         speculative_capacity=4.0)
+    reqs = [LmRequest(uid=i, prompt=rng.integers(
+        0, model.cfg.vocab_size, 1664).astype(np.int32), max_new_tokens=16)
+        for i in range(64)]
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in reqs:
+            eng.try_add(r)
+        eng._flush_admissions()
+        torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in KERNELS.items() if f.launches}
+    by_name, n_by_name, busy, span, events = device_time(prof)
+    out = {"requests": 64, "prompt_len": 1664, "launches": launches,
+           "device_events": events, "device_busy_ms": busy / 1e3,
+           "span_ms": span / 1e3, "busy_share": busy / span}
+    for name in ("prefill_attn", ffn_kernel):
+        ms = sum(t for n, t in by_name.items() if SYMBOLS[name] in n) / 1e3
+        n = sum(c for k, c in n_by_name.items() if SYMBOLS[name] in k)
+        if n != launches.get(name):
+            raise RuntimeError(f"the profiler saw {n} launches of {name}, "
+                               f"its wrapper counted {launches.get(name)}")
+        out[f"{name}_ms"] = ms
+        out[f"{name}_ms_per_launch"] = ms / n
+        out[f"{name}_share"] = ms / (busy / 1e3)
+    out["top_kernels_ms"] = [[n[:70], t / 1e3] for n, t in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:8]]
+    return out
 
 
 def small_lm_check(expert_type="ffn", kv_modes=(8, 0)):
@@ -880,6 +1024,7 @@ def main():
     injected = {(256, 128): inject_scale(256, 128, 128),
                 (16384, 2048): inject_scale(16384, 2048, 16)}
     t0 = time.perf_counter()
+    ptxas = start_ptxas()
     build.build_all(build.SOURCES, [f.source for f in injected.values()] + [
         k.cuda_source(d) for k in (SQUARED_RELU, GELU_TANH)
         for d in (torch.bfloat16, torch.float32)])
@@ -887,6 +1032,10 @@ def main():
         build.load(name)
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}),
           flush=True)
+    print(json.dumps({"phase": "prefill_attn_ptxas",
+                      "kernels": ptxas_report(ptxas)}), flush=True)
+    print(json.dumps({"phase": "prefill_attn_sass",
+                      **sass_counts("prefill_attn")}), flush=True)
 
     # the decode server's shape: capacity 32 (the speculated buffer at 256
     # active tokens), row counts of 512 top-2 routings over 128 experts
@@ -1047,6 +1196,9 @@ def main():
         torch.cuda.empty_cache()
     # K6 at 8 rows (16 blocks): the time one block needs for the window
     print(json.dumps(check_decode_attn("int8", bandwidth, b=8)), flush=True)
+    # K7's float32 kernel (CUDA cores) over the INT8 cache
+    print(json.dumps(check_prefill_attn("int8", bandwidth,
+                                        dtype=torch.float32)), flush=True)
     r = check_kv_write(bandwidth)
     print(json.dumps(r), flush=True)
     checks[("kv_write", "int8")] = r
@@ -1076,6 +1228,10 @@ def main():
             launches[ffn_kernel] = counts[ffn_kernel]
         print(json.dumps({"phase": f"{label}_profile",
                           **lm_profile(lm, lm_p, SEED + 2)}), flush=True)
+        print(json.dumps({"phase": f"{label}_prefill_profile",
+                          **lm_prefill_profile(lm, lm_p, SEED + 3,
+                                               ffn_kernel),
+                          "card": smi}), flush=True)
         del lm, lm_p
         torch.cuda.empty_cache()
 

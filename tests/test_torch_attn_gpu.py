@@ -7,10 +7,14 @@ kernel has no CPU mode). This file imports no JAX; on a machine without
 JAX run it as `python -m pytest --noconftest tests/test_torch_attn_gpu.py`.
 """
 
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
+from tutel_tpu_torch.csrc import build
 from tutel_tpu_torch.models import TransformerMoE, TransformerMoEConfig
 from tutel_tpu_torch.ops import decode_attn as da
 from tutel_tpu_torch.ops import kv_write, quant
@@ -96,6 +100,49 @@ def test_prefill_attn_kernel_matches_twin(cuda, mode, dtype, nh, kvh, hd, tq,
     assert da.prefill_attn.launches == before + 1
     ref = da.prefill_attn_reference(q, k, v, start, **kw)
     assert got.dtype == dtype and _rel_err(got, ref) <= TOL[dtype]
+
+
+# bfloat16 queries run the tensor-core kernel: cases at its tile edges
+# (64 query rows, K/V tiles of 64 positions, 32 at HD 256)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("b,nh,kvh,hd,tq,start,t,q_scale", [
+    (3, 4, 4, 128, 64, 200, 512, 1.0),      # mq = 1 (nh == kvh)
+    (2, 16, 2, 128, 40, 77, 512, 1.0),      # mq = 8: 8 positions a tile
+    (3, 8, 2, 128, 1, 0, 512, 1.0),         # one query at position 0
+    (2, 8, 2, 128, 128, 1536, 2048, 1.0),   # a window of 26 tiles
+    (3, 8, 2, 128, 128, 256, 512, 8.0),     # large scores: online rescale
+    (2, 8, 2, 64, 100, 300, 512, 1.0),      # HD 64
+    (2, 4, 2, 256, 50, 130, 512, 1.0),      # HD 256
+    (2, 3, 1, 128, 20, 90, 512, 1.0),       # one group: INT4 spans both nibbles
+], ids=["mq1", "mq8", "tq1_start0", "long_window", "q_x8", "hd64", "hd256",
+        "kvh1_mq3"])
+def test_prefill_attn_kernel_matches_twin_bf16(cuda, mode, b, nh, kvh, hd,
+                                               tq, start, t, q_scale):
+    g = torch.Generator(device=cuda).manual_seed(7 * tq + start + hd)
+    q = (torch.randn(b, tq, nh, hd, generator=g, device=cuda)
+         * q_scale).to(torch.bfloat16)
+    k, v, ks, vs = _cache(g, b, t, kvh, hd, mode, torch.bfloat16, cuda)
+    kw = dict(k_scale=ks, v_scale=vs, attn_len=min(t, start + tq + 70),
+              kv_bits=4 if mode == "int4" else 8)
+    before = da.prefill_attn.launches
+    got = da.prefill_attn(q, k, v, start, **kw)
+    torch.cuda.synchronize()
+    assert da.prefill_attn.launches == before + 1
+    ref = da.prefill_attn_reference(q, k, v, start, **kw)
+    assert got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert _rel_err(got, ref) <= TOL[torch.bfloat16]
+
+
+def test_prefill_attn_library_runs_on_tensor_cores(cuda):
+    """The built K7 library holds HMMA instructions (the bf16 kernel's
+    mma.sync), read from its SASS with cuobjdump."""
+    lib = build.library_path("prefill_attn")
+    build.load("prefill_attn")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    assert sass.count("HMMA") > 0
 
 
 def test_decode_attn_rejects_mismatched_shapes(cuda):

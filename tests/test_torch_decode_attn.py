@@ -163,6 +163,35 @@ def test_bfloat16_rounds_like_the_pallas_kernels():
     _close(got, np.asarray(ref, np.float32), tol=1e-2)
 
 
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("start", [0, 120])
+def test_prefill_attn_bfloat16_matches_pallas(bits, start):
+    """K7's bfloat16 queries run its tensor-core kernel, whose oracle on
+    the card is the bf16 twin; here that twin follows the Pallas kernel in
+    bf16 (interpret mode): q and a float cache in bf16, float32 scores and
+    sums, softmax weights rounded to bf16 before the combine. Tolerance
+    1e-2 of max |ref|: both sides round the weights to bf16, the Pallas
+    kernel against the running max of its 128-position chunks and the
+    twin against the row's max, so a weight can land on the neighbouring
+    bf16 value (2^-8 apart), and the output is rounded to bf16 (2^-9)."""
+    rng = np.random.default_rng(60 + bits + start)
+    b, tq, nh, kvh, hd, t = 2, 8, 8, 2, 128, 256
+    q = rng.standard_normal((b, tq, nh, hd)).astype(np.float32)
+    k, v, ks, vs = _cache(rng, b, t, kvh, hd, bits)
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _both(k, v, ks, vs)
+    if bits == 0:                          # a float cache is of q's type
+        jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
+    ref = jattn.prefill_attn(jnp.asarray(q, jnp.bfloat16), jk, jv, start,
+                             k_scale=jks, v_scale=jvs, attn_len=t,
+                             kv_bits=bits or 8, wc=128, interpret=True)
+    got = tattn.prefill_attn(torch.from_numpy(q).to(torch.bfloat16), tk, tv,
+                             start, k_scale=tks, v_scale=tvs, attn_len=t,
+                             kv_bits=bits or 8)
+    assert got.dtype == torch.bfloat16
+    _close(got, np.asarray(ref, np.float32), tol=1e-2)
+
+
 def test_unpack_int4_matches_the_model_packing():
     rng = np.random.default_rng(50)
     x = rng.standard_normal((5, 2, 64)).astype(np.float32)

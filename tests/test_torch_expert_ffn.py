@@ -129,7 +129,8 @@ def test_expert_ffn_float_path_matches_jax():
     got = tnet.apply(convert.from_jax_params(jp, "cpu"), torch.from_numpy(x))
     _live_close(got.numpy(), ref, np.full(3, 5))
     shapes = {k: tuple(v.shape)
-              for k, v in tnet.init(torch.Generator().manual_seed(0)).items()}
+              for k, v in tnet.init(torch.Generator().manual_seed(0),
+                                  device="cpu").items()}
     assert shapes == {k: tuple(v.shape) for k, v in jp.items()}
 
 

@@ -11,6 +11,9 @@ from tutel_tpu.ops import fused_ffn_pallas as jfp
 from tutel_tpu.ops import quant as jq
 from tutel_tpu_torch import convert
 from tutel_tpu_torch.ops import fused_ffn as tfp
+from tutel_tpu_torch.experts.ffn import FusedExpertsNetwork
+from tutel_tpu_torch.experts.llama_ffn import LlamaFFNNetwork
+from tutel_tpu_torch.gates.top import LinearTopKGate
 from tutel_tpu_torch.ops import quant as tq
 from tutel_tpu_torch.utils import resolve_device
 
@@ -117,3 +120,21 @@ def test_cuda_default_raises_without_a_gpu():
         resolve_device()
     with pytest.raises(RuntimeError):
         convert.from_jax_params({"w": np.zeros(2, np.float32)})
+
+
+@pytest.mark.parametrize("module", [
+    FusedExpertsNetwork(model_dim=8, hidden_size_per_expert=16,
+                        num_experts_per_device=2),
+    LlamaFFNNetwork(model_dim=8, hidden_size_per_expert=16,
+                    num_experts_per_device=2),
+    LinearTopKGate(model_dim=8, num_global_experts=4, k=2)],
+    ids=["ffn", "llama_ffn", "top_gate"])
+def test_init_defaults_to_cuda(module):
+    """The parts' init methods default to the GPU like every entry point:
+    without one they raise; with device="cpu" they build on the CPU."""
+    params = module.init(torch.Generator().manual_seed(0), device="cpu")
+    assert all(v.device.type == "cpu" for v in params.values())
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-GPU error cannot occur")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.init(torch.Generator().manual_seed(0))

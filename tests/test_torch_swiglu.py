@@ -136,7 +136,7 @@ def test_llama_ffn_float_matches_jax(dtype):
     tol = 1e-5 if dtype == jnp.float32 else 2e-2
     assert _live_err(got.float().numpy(), np.asarray(ref, np.float32),
                      np.full(3, 5)) <= tol
-    tp = tnet.init(torch.Generator().manual_seed(0))
+    tp = tnet.init(torch.Generator().manual_seed(0), device="cpu")
     assert {k: tuple(v.shape) for k, v in tp.items()} == \
         {k: tuple(v.shape) for k, v in jp.items()}
     assert 0.009 < float(torch.cat([v.flatten() for v in tp.values()]).std()) \
@@ -248,7 +248,7 @@ def test_swiglu_lm_engine_greedy_tokens_match_jax():
 
 def test_quantize_expert_params_covers_the_swiglu_weights():
     _, tnet = _nets()
-    tp = tnet.init(torch.Generator().manual_seed(0))
+    tp = tnet.init(torch.Generator().manual_seed(0), device="cpu")
     qp = quant.quantize_expert_params(tp, bits=4)
     assert all(isinstance(qp[k], quant.QuantizedWeight)
                for k in ("w1", "w2", "w3"))

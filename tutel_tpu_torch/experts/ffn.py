@@ -19,7 +19,7 @@ from ..ops.activations import relu
 from ..ops.grouped_gemm_quant import quantized_ffn
 from ..ops.quant import QuantizedWeight
 from ..ops.w8a8 import w8a8_ffn
-from ..utils import initializers
+from ..utils import initializers, resolve_device
 
 
 @dataclasses.dataclass
@@ -39,7 +39,8 @@ class FusedExpertsNetwork:
             self.activation_fn = relu
 
     def init(self, generator=None, dtype=torch.float32,
-             device="cpu") -> Dict[str, Any]:
+             device="cuda") -> Dict[str, Any]:
+        device = resolve_device(device)
         e, m, h, o = (self.num_experts_per_device, self.model_dim,
                       self.hidden_size_per_expert, self.output_dim)
 

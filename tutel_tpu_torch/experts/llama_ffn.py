@@ -24,7 +24,7 @@ from ..ops.activations import silu
 from ..ops.fused_ffn import fused_swiglu_quant
 from ..ops.grouped_gemm_quant import grouped_gemm_quant
 from ..ops.quant import QuantizedWeight
-from ..utils import matmul_f32
+from ..utils import matmul_f32, resolve_device
 
 
 @dataclasses.dataclass
@@ -46,9 +46,10 @@ class LlamaFFNNetwork:
         self.output_dim = self.model_dim
 
     def init(self, generator=None, dtype=torch.float32,
-             device="cpu") -> Dict[str, Any]:
+             device="cuda") -> Dict[str, Any]:
         """N(0, 0.01^2) weights drawn in float32 from `generator` (on
         `device`), then cast to `dtype`."""
+        device = resolve_device(device)
         e, m, h = (self.num_experts_per_device, self.model_dim,
                    self.hidden_size_per_expert)
 

@@ -10,7 +10,7 @@ from typing import Any, Dict
 
 import torch
 
-from ..utils import initializers
+from ..utils import initializers, resolve_device
 
 
 @dataclasses.dataclass
@@ -28,7 +28,8 @@ class LinearTopKGate:
             self.capacity_factor = float(os.environ.get("CAP_FACTOR", 1.0))
 
     def init(self, generator=None, dtype=torch.float32,
-             device="cpu") -> Dict[str, Any]:
+             device="cuda") -> Dict[str, Any]:
+        device = resolve_device(device)
         wg_dtype = torch.float32 if self.fp32_gate else dtype
         return {"wg": initializers.linear_uniform(
             (self.model_dim, self.num_global_experts), fan_in=self.model_dim,

@@ -12,7 +12,10 @@ is `.repeat`, not `.repeat_interleave`, of the groups.
 
 `decode_attn` and `prefill_attn` launch the CUDA kernels
 (`csrc/decode_attn.cu`, `csrc/prefill_attn.cu`) for CUDA tensors and run
-their plain PyTorch twins (`*_reference`) for CPU tensors. The twins
+their plain PyTorch twins (`*_reference`) for CPU tensors. K7 has two
+kernels behind one entry, picked by q's type: bfloat16 queries run on the
+tensor cores (mma.sync), float32 queries on the CUDA cores (TF32 would
+round q and K to 10 bits). The twins
 follow the Pallas kernels' rounding order: quantized values are cast to
 q's type and the dots accumulate in float32; the K scale multiplies the
 score, the V scale the softmax weights, which are rounded to q's type
@@ -258,7 +261,8 @@ def prefill_attn(q, k, v, start, *, k_scale=None, v_scale=None,
     `decode_attn` (the chunk's own K/V already written); start: int;
     attn_len: positions read (None = T), at least start + TQ. Returns
     [B, TQ, NH, HD] in q.dtype. CPU tensors run the plain twin; CUDA
-    tensors run kernel K7, and anything it does not take raises.
+    tensors run kernel K7 (bfloat16 q: its tensor-core kernel; float32 q:
+    its CUDA-core kernel), and anything neither takes raises.
     """
     b, tq, nh, hd = q.shape
     start = int(start)
