@@ -1,7 +1,7 @@
-"""The port stands alone: no module of tutel_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package tutel_tpu. Names are
-compared exactly or by the prefixes "jax." and "tutel_tpu.", since
-"tutel_tpu_torch" itself starts with "tutel_tpu"."""
+"""The port stands alone: no module of tutel_tpu_torch, and neither
+chip_smoke.py nor a script in tools/, imports jax or the JAX package
+tutel_tpu. Names are compared exactly or by the prefixes "jax." and
+"tutel_tpu.", since "tutel_tpu_torch" itself starts with "tutel_tpu"."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "tutel_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "tutel_tpu")
 
 

@@ -10,6 +10,9 @@ held against fn(x) op by op. The kernels themselves are held against
 their twins on the GPU (tests/test_torch_jit_gpu.py, chip_smoke.py).
 """
 
+import re
+import struct
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -77,22 +80,100 @@ def test_thread_extent_and_kernel_name_parsing():
 
 def test_generated_trampoline():
     text = jit.trampoline("scale_plus_one", 3)
-    assert 'extern "C" int tt_jit_launch(void** args, int nargs' in text
-    assert "if (nargs != 3) return (int)cudaErrorInvalidValue;" in text
-    assert "cudaLaunchKernel((const void*)scale_plus_one, dim3(gx, gy, gz)" \
-        in text
+    assert 'extern "C" int tt_jit_launch(const void* data)' in text
+    assert "if (r.nargs != 3) return (int)cudaErrorInvalidValue;" in text
+    assert "void* params[3];" in text
+    assert "cudaLaunchKernel((const void*)scale_plus_one," in text
+    assert "reinterpret_cast<cudaStream_t>(r.stream)" in text
+    # the device: switched only when the caller's differs, then restored
+    assert "caller != r.device" in text and "cudaSetDevice(caller)" in text
+    # the shared memory limit: raised only past what the device allows
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in text
+    assert "if (err == cudaSuccess && r.smem > 48 * 1024)" in text
+    assert "if (smem <= allowed.load(std::memory_order_acquire))" in text
     assert "cudaGetLastError()" in text and "tt_error_string" in text
+    # the occupancy query only where asked for (K10's text)
+    assert "tt_jit_occupancy" not in text
+    query = jit.trampoline("scale_plus_one", 3, occupancy=True)
+    assert 'extern "C" int tt_jit_occupancy(int threads, int smem' in query
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in query
     f = jit.inject_kernel(SCALE_SRC, out_shape=((256, 128), torch.float32))
     assert f.source == SCALE_SRC + text and f.launches == 0
-    # the K10 text: the template behind its two definitions, K9's trampoline
+    # the K10 text: the template behind its four definitions (the block
+    # shape from jit.py), K9's trampoline with the occupancy query
     k = jit.pallas_kernel(lambda v: torch.relu(v) ** 2)
     src = k.cuda_source(torch.bfloat16)
     assert src.startswith(
-        "#define TT_DTYPE 1\n#define TT_BODY const float t0 = tt_relu(v); "
+        f"#define TT_DTYPE 1\n#define TT_THREADS {jit._THREADS}\n"
+        f"#define TT_UNROLL {jit._UNROLL}\n"
+        "#define TT_BODY const float t0 = tt_relu(v); "
         "const float t1 = tt_powi(t0, 2); return t1;\n")
     assert jit.ELEMENTWISE.read_text() in src
-    assert src.endswith(jit.trampoline("tt_elementwise", 3))
+    assert src.endswith(jit.trampoline("tt_elementwise", 3, occupancy=True))
+    # a kernel without parameters keeps one unused slot
+    assert "unsigned long long args[1];" in jit.trampoline("k", 0)
+    assert "if (r.nargs != 0)" in jit.trampoline("k", 0)
+
+
+_FIELD = re.compile(r"static_assert\(offsetof\(tt_jit_record, (\w+)\) == "
+                    r"(\d+), ")
+_SIZE = re.compile(r"static_assert\(sizeof\(tt_jit_record\) == "
+                   r"(\d+) \+ (\d+) \* (\d+), ")
+
+
+@pytest.mark.parametrize("arity", [0, 1, 3, 7])
+def test_launch_record_layout_matches_the_trampoline(arity):
+    """The record `_Launcher.pack` builds, read back at the offsets the
+    trampoline's static_asserts give the C struct (which nvcc checks), so
+    that the Python and C layouts cannot drift apart."""
+    params = ", ".join(f"float* p{i}" for i in range(arity))
+    launcher = jit._Launcher(f"__global__ void k({params}) {{}}")
+    text = jit.trampoline("k", arity)
+    assert launcher.text.endswith(text)
+    offsets = {name: int(at) for name, at in _FIELD.findall(text)}
+    assert sorted(offsets) == ["args", "block", "device", "grid", "nargs",
+                               "smem", "stream"]
+    head, slot, slots = map(int, _SIZE.search(text).groups())
+    args = [0x7F00_0000_0000 + 256 * i for i in range(arity)]
+    if arity:
+        args[-1] = 2 ** 63 - 1                  # a 64-bit int (K10's n)
+    grid, block = (1000, 3, 2), (256, 4, 1)
+    stream = 0x5555_AAAA_0000_1234
+    record = launcher.pack(args, grid, block, 98304, 5, stream)
+    assert len(record) == head + slot * slots == launcher.record.size
+    assert slots == max(arity, 1)
+
+    def at(name, fmt, i=0):
+        return struct.unpack_from("<" + fmt, record,
+                                  offsets[name] + i * struct.calcsize(fmt))
+    assert at("nargs", "q") == (arity,)
+    assert at("stream", "Q") == (stream,)
+    assert at("grid", "3i") == grid and at("block", "3i") == block
+    assert at("smem", "i") == (98304,) and at("device", "i") == (5,)
+    assert [at("args", "Q", i)[0] for i in range(slots)] == (args or [0])
+    with pytest.raises(struct.error):           # one slot per argument
+        launcher.pack(args + [1], grid, block, 0, 0, stream)
+
+
+def test_a_second_call_neither_relifts_nor_reparses(monkeypatch):
+    k = jit.pallas_kernel(lambda v: torch.relu(v) ** 2)
+    x = torch.randn(8, 4)
+    first = k(x)
+    lifted, launcher = k.lifted, k._launcher(torch.bfloat16)
+    f = jit.inject_kernel(SCALE_SRC, out_shape=((256, 128), torch.float32),
+                          plain=lambda a, b: a * b[0, 0] + 1)
+    a, s = torch.randn(256, 128), torch.ones(1, 1)
+    f(a, s)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("traced or parsed again")
+    for name in ("lift", "kernel_signature", "thread_extents", "_out_specs"):
+        monkeypatch.setattr(jit, name, refuse)
+    monkeypatch.setattr(jit.torch.fx, "symbolic_trace", refuse)
+    assert torch.equal(k(x), first) and k.lifted is lifted
+    assert k._launcher(torch.bfloat16) is launcher
+    assert torch.equal(f(a, s), a + 1)
+    assert k.launches == 0 and f.launches == 0
 
 
 def _facade_jax(out_shape):

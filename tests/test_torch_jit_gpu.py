@@ -219,3 +219,171 @@ def test_lifted_activation_on_the_expert_paths(cuda):
     with pytest.raises(ValueError, match="no CUDA kernel"):
         fused_ffn.fused_ffn_quant(x.to(cuda), stream,
                                   activation_fn=SQUARED_RELU)
+
+
+# -- the launch path: one packed record per call -----------------------------
+
+def test_launches_replay_in_a_cuda_graph(cuda):
+    """A K9 and a K10 launch captured in a CUDA graph, replayed on new data
+    copied into the captured inputs, equal their twins each time."""
+    f = jit.inject_kernel(scale_source(256, 128),
+                          out_shape=((256, 128), torch.float32),
+                          plain=lambda a, b: a * b[0, 0] + 1)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(256, 128, generator=g, device=cuda)
+    s = torch.full((1, 1), 3.0, device=cuda)
+    h = torch.randn(4, 32, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    side = torch.cuda.Stream()       # warm up beside the capture's stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        f(x, s)
+        GELU_TANH(h)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (f.launches, GELU_TANH.launches)
+    with torch.cuda.graph(graph):
+        y, z = f(x, s), GELU_TANH(h)
+    # the capture launched each once; a replay goes around the wrappers
+    assert (f.launches, GELU_TANH.launches) == (before[0] + 1, before[1] + 1)
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        h.copy_(torch.randn(h.shape, generator=g, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(y, x * 3 + 1) <= TOL[torch.float32]
+        assert _rel(z, GELU_TANH.fn(h)) <= TOL[torch.bfloat16]
+        assert _rel(z, GELU_TANH.lifted.evaluate(h).to(torch.bfloat16)) \
+            <= 1e-2
+
+
+SPIN = """
+// [thread_extent] blockIdx.x = 1
+// [thread_extent] threadIdx.x = 1
+__global__ void spin(const long long* cycles, long long* o) {
+  const long long start = clock64();
+  while (clock64() - start < cycles[0]) {}
+  o[0] = 1;
+}
+"""
+
+
+def test_a_launch_runs_on_the_current_stream(cuda):
+    """Inside `torch.cuda.stream(side)` K9 and K10 launch on `side`: behind
+    a spinning kernel on `side` and a copy queued after it, they read the
+    copied data, and the default stream stays idle meanwhile."""
+    spin = jit.inject_kernel(SPIN, out_shape=((1,), torch.int64))
+    cycles = torch.tensor([200_000_000], device=cuda)      # about 0.1 s
+    f = jit.inject_kernel(scale_source(256, 128),
+                          out_shape=((256, 128), torch.float32))
+    src = torch.randn(256, 128, device=cuda)
+    x, s = torch.zeros(256, 128, device=cuda), torch.ones(1, 1, device=cuda)
+    hsrc = torch.randn(8, 1024, device=cuda).to(torch.bfloat16)
+    h = torch.zeros_like(hsrc)
+    spin(torch.zeros_like(cycles))               # built and loaded first
+    f(x, s)
+    SQUARED_RELU(h)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        done = spin(cycles)
+        x.copy_(src)
+        h.copy_(hsrc)
+        y, z = f(x, s), SQUARED_RELU(h)
+    assert not side.query() and torch.cuda.default_stream().query()
+    side.synchronize()
+    assert done.item() == 1
+    assert _rel(y, src + 1) <= TOL[torch.float32]
+    assert torch.equal(z, SQUARED_RELU.lifted.evaluate(hsrc).to(
+        torch.bfloat16))
+
+
+def test_interleaved_injected_kernels_keep_their_arguments(cuda):
+    plus = jit.inject_kernel(scale_source(256, 128),
+                             out_shape=((256, 128), torch.float32))
+    tiles = jit.inject_kernel(scale_source(512, 128, tile_rows=64),
+                              out_shape=((512, 128), torch.float32))
+    g = torch.Generator(device=cuda).manual_seed(12)
+    calls = []
+    for i in range(6):
+        f, rows = (plus, 256) if i % 2 == 0 else (tiles, 512)
+        x = torch.randn(rows, 128, generator=g, device=cuda)
+        s = torch.full((1, 1), float(i), device=cuda)
+        calls.append((f(x, s), x, s))
+    torch.cuda.synchronize()
+    for got, x, s in calls:
+        assert _rel(got, x * s[0, 0] + 1) <= TOL[torch.float32]
+    assert (plus.launches, tiles.launches) == (3, 3)
+
+
+SHARED_PROBE = """
+// [thread_extent] blockIdx.x = 2
+// [thread_extent] threadIdx.x = 256
+__global__ void shared_probe(const float* x, float* o) {
+  extern __shared__ float buf[];
+  unsigned bytes;
+  asm volatile("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+  const int n = bytes / 4;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[0] + i;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    o[2 * blockIdx.x] = (float)bytes;
+    o[2 * blockIdx.x + 1] = buf[n - 1];
+  }
+}
+"""
+
+
+def test_dynamic_shared_memory_grows_between_launches(cuda):
+    """One kernel asking for 64 KB, then 96 KB, then 64 KB again: the
+    trampoline raises the limit when a launch asks for more than the
+    device allows it, and every launch runs."""
+    x = torch.full((1,), 0.5, device=cuda)
+    for kb in (64, 96, 64):
+        f = jit.inject_kernel(SHARED_PROBE, out_shape=((4,), torch.float32),
+                              scratch_bytes=kb * 1024)
+        got = f(x).tolist()
+        n = kb * 1024 // 4
+        assert got == [kb * 1024.0, 0.5 + n - 1] * 2, kb
+
+
+def test_a_launch_keeps_the_callers_device(cuda):
+    f = jit.inject_kernel(scale_source(256, 128),
+                          out_shape=((256, 128), torch.float32))
+    for index in range(min(torch.cuda.device_count(), 2)):
+        x = torch.randn(256, 128, device=f"cuda:{index}")
+        s = torch.ones(1, 1, device=f"cuda:{index}")
+        for current in range(min(torch.cuda.device_count(), 2)):
+            torch.cuda.set_device(current)
+            y = f(x, s)
+            assert torch.cuda.current_device() == current
+            assert y.device == x.device
+            assert _rel(y, x + 1) <= TOL[torch.float32]
+            SQUARED_RELU(x)
+            assert torch.cuda.current_device() == current
+    torch.cuda.set_device(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pallas_kernel_grid_from_occupancy(cuda, dtype):
+    """The grid: at most the lifted body's occupancy times the SMs while
+    the output fits in the 50 MB L2 (a 20-40 MB tensor takes several grid
+    steps, the last one partial), one block per step past it (60-120 MB).
+    K10 matches its float32 statements exactly on both, aligned and one
+    element off."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for size in (10_000_011, 30_000_011):
+        buf = torch.randn(size, device=cuda).to(dtype)
+        for x in (buf[:-1], buf[1:]):
+            got = SQUARED_RELU(x)
+            launcher, per_block, blocks, in_l2, device = \
+                SQUARED_RELU._geometry[(dtype, 0)]
+            occupancy = launcher.occupancy(jit._THREADS, 0, 0)
+            assert 1 <= occupancy <= 2048 // jit._THREADS
+            assert blocks == occupancy * sms and device == 0
+            assert per_block == \
+                jit._THREADS * jit._UNROLL * 16 // x.element_size()
+            fits = x.numel() <= in_l2
+            assert fits == (size == 10_000_011)
+            if fits:
+                assert x.numel() > per_block * blocks   # several grid steps
+            assert torch.equal(got, SQUARED_RELU.lifted.evaluate(x).to(dtype))

@@ -136,10 +136,13 @@ def build_all(names=SOURCES, texts=()):
         raise RuntimeError("\n".join(errors))
 
 
-def _open(path, entry, argtypes):
+def _open(path, signatures):
+    """Load a library; `signatures` maps each C entry point (returning an
+    int) to its ctypes argument types."""
     lib = ctypes.CDLL(str(path))
-    getattr(lib, entry).argtypes = argtypes
-    getattr(lib, entry).restype = ctypes.c_int
+    for entry, argtypes in signatures.items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
     lib.tt_error_string.argtypes = [ctypes.c_int]
     lib.tt_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,22 +154,23 @@ def load(name):
         lib = _loaded.get(name)
         if lib is None:
             build_all((name,))
-            lib = _loaded[name] = _open(library_path(name), *SIGNATURES[name])
+            entry, argtypes = SIGNATURES[name]
+            lib = _loaded[name] = _open(library_path(name), {entry: argtypes})
         return lib
 
 
-def load_source(text, entry, argtypes):
+def load_source(text, signatures):
     """The ctypes library compiled from the CUDA source `text`, built on
-    first use and loaded once per process; `entry` (a C function of the
-    text returning a cudaError_t) gets `argtypes`. The text must define
-    `tt_error_string`, as every source in csrc/ does."""
+    first use and loaded once per process; `signatures` maps each C entry
+    point of the text (returning an int) to its ctypes argument types. The
+    text must define `tt_error_string`, as every source in csrc/ does."""
     name = source_name(text)
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build_all((), (text,))
-            lib = _loaded[name] = _open(BUILD_DIR / f"{name}.so", entry,
-                                        argtypes)
+            lib = _loaded[name] = _open(BUILD_DIR / f"{name}.so",
+                                        signatures)
         return lib
 
 

@@ -21,11 +21,21 @@ recompiles. CPU tensors run each kernel's plain twin: `plain=` for
 `inject_kernel`, `fn(x)` for `pallas_kernel`. CUDA tensors launch the
 kernel or raise. Both count their launches (`.launches` on each returned
 callable, and a total on `inject_kernel` and `pallas_kernel`).
+
+A launch is one ctypes call with one argument: a launch record packed by
+one `struct.pack` (`_Launcher.pack`) holding the kernel's arguments, the
+grid and block, the dynamic shared memory, the device and PyTorch's
+current stream. The trampoline compiled behind the source unpacks it
+(see `trampoline`). What does not change between calls is done once:
+`inject_kernel` parses the source and a fixed `out_shape`, a K10 callable
+lifts `fn` at its first call, and the first launch builds the library
+(and sizes K10's grid per dtype and device); later calls only check their
+tensors, allocate the outputs and launch. A launch on the current stream
+captures into a CUDA graph.
 """
 
 import ctypes
 import dataclasses
-import functools
 import math
 import operator
 import re
@@ -37,11 +47,16 @@ import torch.fx
 from .csrc import build
 
 ELEMENTWISE = build.CSRC / "elementwise.cu"
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# the trampoline: args, nargs, grid x/y/z, block x/y/z, dynamic shared
-# bytes, device, stream
-_ENTRY = "tt_jit_launch"
-_ARGTYPES = [_P, _I] + [_I] * 6 + [_I, _I, _P]
+# the trampoline's entries (`trampoline`) and their ctypes argument types:
+# a launch takes one launch record; the occupancy query (K10's text only)
+# threads, dynamic shared bytes, device and a pointer to the int it writes
+_ENTRY, _OCCUPANCY = "tt_jit_launch", "tt_jit_occupancy"
+_SIGNATURES = {_ENTRY: [ctypes.c_char_p],
+               _OCCUPANCY: [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+# the launch record's fixed part, little-endian as on the card's host: the
+# argument count, the stream, grid x/y/z, block x/y/z, dynamic shared bytes,
+# the device; then 8 bytes per argument (at least one slot)
+_RECORD = "<qQ8i"
 _EXTENT = re.compile(r"//\s*\[thread_extent\]\s*(blockIdx|threadIdx)\."
                      r"([xyz])\s*=\s*(\d+)")
 _COMMENT = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
@@ -97,57 +112,168 @@ def kernel_signature(source):
     return found[0].group(1), len(params)
 
 
-def trampoline(name, arity):
-    """The extern "C" launcher compiled behind a kernel's source: it refuses
-    another argument count than `arity`, raises the kernel's dynamic
-    shared memory limit when a launch asks for more than 48 KB, launches
-    `name` with cudaLaunchKernel on the given stream, and returns the
-    launch's cudaError_t (which a launch refused for its geometry reports
-    nowhere else)."""
+def trampoline(name, arity, occupancy=False):
+    """The extern "C" entries compiled behind a kernel's source.
+
+    `tt_jit_launch(record)` launches `name` from one launch record (see
+    `_Launcher.pack`; the static_asserts give its layout, which
+    tests/test_torch_jit.py holds against the packing). It refuses a
+    record for another argument count than `arity`, points the kernel's
+    parameters into the record, switches to the record's device only when
+    the caller's differs and restores the caller's afterwards, raises the
+    kernel's dynamic shared memory limit only when a launch asks for more
+    than that device already allows (above the default 48 KB), launches
+    with cudaLaunchKernel on the record's stream, and returns the launch's
+    cudaError_t or, failing that, cudaGetLastError()'s (a launch refused
+    for its geometry reports nowhere else).
+
+    With `occupancy`, `tt_jit_occupancy` gives
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor of `name` for a block
+    size and dynamic shared memory on a device (K10 sizes its grid by it)."""
+    slots = max(arity, 1)
     return f"""
-extern "C" int {_ENTRY}(void** args, int nargs, int gx, int gy, int gz,
-                             int bx, int by, int bz, int smem, int device,
-                             void* stream) {{
-  if (nargs != {arity}) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute((const void*){name},
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+#include <atomic>
+#include <cstddef>
+#include <cstring>
+#include <mutex>
+
+namespace {{
+struct tt_jit_record {{            // jit.py _RECORD
+  long long nargs;
+  unsigned long long stream;
+  int grid[3];
+  int block[3];
+  int smem;
+  int device;
+  unsigned long long args[{slots}];  // pointers, 64-bit ints
+}};
+static_assert(offsetof(tt_jit_record, nargs) == 0, "record layout");
+static_assert(offsetof(tt_jit_record, stream) == 8, "record layout");
+static_assert(offsetof(tt_jit_record, grid) == 16, "record layout");
+static_assert(offsetof(tt_jit_record, block) == 28, "record layout");
+static_assert(offsetof(tt_jit_record, smem) == 40, "record layout");
+static_assert(offsetof(tt_jit_record, device) == 44, "record layout");
+static_assert(offsetof(tt_jit_record, args) == 48, "record layout");
+static_assert(sizeof(tt_jit_record) == 48 + 8 * {slots}, "record layout");
+
+constexpr int tt_jit_devices = 64;
+// the dynamic shared memory each device already allows the kernel (0: the
+// default 48 KB); raised under the lock, so the attribute only grows
+std::atomic<int> tt_jit_smem[tt_jit_devices];
+std::mutex tt_jit_smem_lock;
+
+cudaError_t tt_jit_allow_smem(int smem, int device) {{
+  if (device < 0 || device >= tt_jit_devices) return cudaErrorInvalidDevice;
+  std::atomic<int>& allowed = tt_jit_smem[device];
+  if (smem <= allowed.load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> hold(tt_jit_smem_lock);
+  if (smem <= allowed.load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*){name}, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) allowed.store(smem, std::memory_order_release);
+  return err;
+}}
+}}  // namespace
+
+extern "C" int {_ENTRY}(const void* data) {{
+  tt_jit_record r;
+  std::memcpy(&r, data, sizeof r);
+  if (r.nargs != {arity}) return (int)cudaErrorInvalidValue;
+  void* params[{slots}];
+  for (int i = 0; i < {slots}; ++i) params[i] = &r.args[i];
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  const bool other = err == cudaSuccess && caller != r.device;
+  if (other) err = cudaSetDevice(r.device);
+  if (err == cudaSuccess && r.smem > 48 * 1024)
+    err = tt_jit_allow_smem(r.smem, r.device);
   if (err == cudaSuccess)
-    err = cudaLaunchKernel((const void*){name}, dim3(gx, gy, gz),
-                           dim3(bx, by, bz), args, (size_t)smem,
-                           static_cast<cudaStream_t>(stream));
+    err = cudaLaunchKernel((const void*){name},
+                           dim3(r.grid[0], r.grid[1], r.grid[2]),
+                           dim3(r.block[0], r.block[1], r.block[2]), params,
+                           (size_t)r.smem,
+                           reinterpret_cast<cudaStream_t>(r.stream));
+  if (other) cudaSetDevice(caller);               // the caller's device back
   const cudaError_t last = cudaGetLastError();   // read and cleared
   return (int)(err != cudaSuccess ? err : last);
 }}
-
+{_occupancy_entry(name) if occupancy else ""}
 extern "C" const char* tt_error_string(int err) {{
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }}
 """
 
 
+def _occupancy_entry(name):
+    return f"""
+extern "C" int {_OCCUPANCY}(int threads, int smem, int device, int* blocks) {{
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  const bool other = err == cudaSuccess && caller != device;
+  if (other) err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, (const void*){name}, threads, (size_t)smem);
+  if (other) cudaSetDevice(caller);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}}
+"""
+
+
+def _current_stream(index):
+    """PyTorch's current CUDA stream on device `index`, as the int that
+    `torch.cuda.current_stream(index).cuda_stream` gives, without building
+    a torch.cuda.Stream object: the call PyTorch's Inductor-generated code
+    makes before each launch."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 class _Launcher:
     """A CUDA source with one `__global__` function and its trampoline,
-    built and loaded at the first launch."""
+    built and loaded at the first launch; with `occupancy` the trampoline
+    also answers `occupancy`."""
 
-    def __init__(self, source):
+    def __init__(self, source, occupancy=False):
         self.name, self.arity = kernel_signature(source)
-        self.text = source + trampoline(self.name, self.arity)
-        self._lib = None
+        self.text = source + trampoline(self.name, self.arity, occupancy)
+        self._signatures = {e: _SIGNATURES[e] for e in
+                            (_ENTRY, _OCCUPANCY)[:1 + occupancy]}
+        self.record = struct.Struct(_RECORD + "Q" * max(self.arity, 1))
+        self._pad = (0,) * (self.arity == 0)    # the unused slot of arity 0
+        self._lib = self._launch = None
 
-    def __call__(self, args, grid, block, scratch_bytes, device):
-        """Launch on the current stream of `device`; `args` holds one ctypes
-        value per kernel parameter."""
-        if self._lib is None:
-            self._lib = build.load_source(self.text, _ENTRY, _ARGTYPES)
-        ptrs = (ctypes.c_void_p * len(args))(
-            *(ctypes.addressof(a) for a in args))
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = self._lib.tt_jit_launch(ptrs, len(args), *grid, *block,
-                                     scratch_bytes, device.index or 0, stream)
-        build.check(self._lib, rc, f"kernel {self.name}")
+    def _load(self):
+        self._lib = build.load_source(self.text, self._signatures)
+        self._launch = getattr(self._lib, _ENTRY)
+
+    def pack(self, args, grid, block, smem, device, stream):
+        """The launch record of one call, as bytes: the argument count, the
+        stream, the grid and block (3 ints each), the dynamic shared memory
+        bytes, the device index, then each argument as 8 bytes (a pointer
+        or a 64-bit int)."""
+        return self.record.pack(len(args), stream, *grid, *block, smem,
+                                device, *args, *self._pad)
+
+    def __call__(self, args, grid, block, smem, device):
+        """Launch on PyTorch's current stream of CUDA device `device` (an
+        index); `args` holds one int per kernel parameter."""
+        if self._launch is None:
+            self._load()
+        rc = self._launch(self.pack(args, grid, block, smem, device,
+                                    _current_stream(device)))
+        if rc:
+            build.check(self._lib, rc, f"kernel {self.name}")
+
+    def occupancy(self, threads, smem, device):
+        """Resident blocks of `threads` threads per SM of device `device`."""
+        if self._launch is None:
+            self._load()
+        blocks = ctypes.c_int(0)
+        rc = getattr(self._lib, _OCCUPANCY)(threads, smem, device,
+                                            ctypes.byref(blocks))
+        build.check(self._lib, rc, f"occupancy of kernel {self.name}")
+        return blocks.value
 
 
 def _dims(grid):
@@ -156,6 +282,20 @@ def _dims(grid):
             not isinstance(d, int) or d < 1 for d in dims):
         raise ValueError(f"grid must be 1 to 3 positive ints, got {grid!r}")
     return dims + (1,) * (3 - len(dims))
+
+
+def _cuda_index(args):
+    """The device index of `args` when they are contiguous tensors on one
+    CUDA device, else -1."""
+    first = args[0] if args else None
+    if not isinstance(first, torch.Tensor) or not first.is_cuda:
+        return -1
+    index = first.get_device()
+    for a in args:
+        if not (isinstance(a, torch.Tensor) and a.is_cuda and
+                a.get_device() == index and a.is_contiguous()):
+            return -1
+    return index
 
 
 def _is_pair(spec):
@@ -190,8 +330,9 @@ def inject_kernel(source, *, out_shape, grid=None, scratch_bytes=0,
     to three ints), which overrides them as JAX's `grid` does.
 
     out_shape: a (shape, dtype) pair, a list of pairs, or a callable of the
-        inputs returning either; the outputs are allocated with torch.empty
-        on the inputs' device, and a list returns a tuple.
+        inputs returning either (a pair or list is checked here, a
+        callable's result at each call); the outputs are allocated on the
+        inputs' device, and a list returns a tuple.
     scratch_bytes: dynamic shared memory per block (JAX's scratch_shapes);
         above 48 KB the kernel's limit is raised for it.
     plain: the kernel's plain PyTorch twin, run for CPU tensors. Without
@@ -227,7 +368,31 @@ def inject_kernel(source, *, out_shape, grid=None, scratch_bytes=0,
         raise ValueError("no grid: pass grid= or give a `// [thread_extent] "
                          "blockIdx.x = N` comment")
 
+    fixed = None if callable(out_shape) else _out_specs(out_shape, ())
+
+    def check_arity(args, specs):
+        if len(args) + len(specs) != launcher.arity:
+            raise ValueError(f"kernel {launcher.name} takes {launcher.arity} "
+                             f"pointers; got {len(args)} inputs and "
+                             f"{len(specs)} outputs")
+
+    def launch(args, device):
+        specs, single = fixed or _out_specs(out_shape, args)
+        check_arity(args, specs)
+        # new_empty takes the first input's device without parsing one
+        outs = [args[0].new_empty(s, dtype=t) for s, t in specs]
+        launcher([t.data_ptr() for t in (*args, *outs)], grid, block,
+                 scratch_bytes, device)
+        call.launches += 1
+        inject_kernel.launches += 1
+        return outs[0] if single else tuple(outs)
+
     def call(*args):
+        device = _cuda_index(args)
+        if device >= 0:
+            return launch(args, device)
+        # not contiguous tensors on one CUDA device: the CPU's twin, or the
+        # refusal the call earns
         if not args or not all(isinstance(a, torch.Tensor) for a in args):
             raise TypeError("an injected kernel takes one or more tensors "
                             "(pass a scalar as a small tensor)")
@@ -235,7 +400,7 @@ def inject_kernel(source, *, out_shape, grid=None, scratch_bytes=0,
         if len(devices) != 1:
             raise ValueError(f"inputs on several devices: {devices}")
         device = args[0].device
-        specs, single = _out_specs(out_shape, args)
+        specs, single = fixed or _out_specs(out_shape, args)
         if device.type == "cpu":
             if plain is None:
                 raise RuntimeError(
@@ -252,18 +417,10 @@ def inject_kernel(source, *, out_shape, grid=None, scratch_bytes=0,
         if device.type != "cuda":
             raise ValueError(f"injected kernels run on cpu or cuda, not "
                              f"{device}")
-        if len(args) + len(specs) != launcher.arity:
-            raise ValueError(f"kernel {launcher.name} takes {launcher.arity} "
-                             f"pointers; got {len(args)} inputs and "
-                             f"{len(specs)} outputs")
+        check_arity(args, specs)
         if not all(a.is_contiguous() for a in args):
             raise ValueError("an injected kernel takes contiguous tensors")
-        outs = [torch.empty(s, dtype=t, device=device) for s, t in specs]
-        launcher([ctypes.c_void_p(t.data_ptr()) for t in (*args, *outs)],
-                 grid, block, scratch_bytes, device)
-        call.launches += 1
-        inject_kernel.launches += 1
-        return outs[0] if single else tuple(outs)
+        return launch(args, device.index)
 
     call.launches = 0
     call.source = launcher.text      # what nvcc compiles
@@ -465,14 +622,11 @@ def lift(fn):
 
 
 _ELEMENT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_THREADS = 256       # kThreads of csrc/elementwise.cu
-_BLOCKS_PER_SM = 8   # 2048 resident threads per SM on Hopper
-
-
-@functools.lru_cache(maxsize=None)
-def _max_blocks(device_index):
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return _BLOCKS_PER_SM * sms
+# K10's block: threads, and 16-byte vectors a thread loads a step; given
+# to csrc/elementwise.cu as TT_THREADS and TT_UNROLL
+_THREADS = 128
+_BLOCK = (_THREADS, 1, 1)
+_UNROLL = 2
 
 
 class LiftedKernel:
@@ -483,6 +637,11 @@ class LiftedKernel:
         self.launches = 0
         self._lifted = None
         self._launchers = {}          # dtype -> _Launcher
+        # (dtype, device index) -> (launcher, elements a block takes per
+        # step, the blocks the body keeps resident on the card, the most
+        # elements whose output fits in L2, the device index), filled at
+        # the first launch
+        self._geometry = {}
 
     @property
     def lifted(self):
@@ -503,11 +662,35 @@ class LiftedKernel:
                                  f"not {dtype}")
             launcher = self._launchers[dtype] = _Launcher(
                 f"#define TT_DTYPE {_ELEMENT_TYPES[dtype]}\n"
+                f"#define TT_THREADS {_THREADS}\n"
+                f"#define TT_UNROLL {_UNROLL}\n"
                 f"#define TT_BODY {self.lifted.cuda_body()}\n"
-                + ELEMENTWISE.read_text())
+                + ELEMENTWISE.read_text(), occupancy=True)
         return launcher
 
     def __call__(self, x):
+        geometry = self._geometry.get((x.dtype, x.get_device())) \
+            if x.is_cuda and x.is_contiguous() else None
+        if geometry is None:
+            return self._first_call(x)
+        launcher, per_block, blocks, in_l2, device = geometry
+        out = torch.empty_like(x)
+        n = x.numel()
+        if n:
+            steps = -(-n // per_block)
+            launcher((x.data_ptr(), out.data_ptr(), n),
+                     (min(steps, blocks) if n <= in_l2 else steps, 1, 1),
+                     _BLOCK, 0, device)
+            self.launches += 1
+            pallas_kernel.launches += 1
+        return out
+
+    def _first_call(self, x):
+        """A call on the CPU, a refusal, or the first launch for x's dtype
+        and device, which builds the kernel and sizes its grid: for an
+        output that fits in L2, at most as many blocks as the lifted body's
+        occupancy keeps resident on every SM; else one block per step (see
+        csrc/elementwise.cu)."""
         # lift at the first call on any device, so that the CPU refuses
         # what the card would
         self.lifted
@@ -524,19 +707,16 @@ class LiftedKernel:
         if not x.is_contiguous():
             raise ValueError("pallas_kernel takes a contiguous tensor")
         launcher = self._launcher(x.dtype)
-        out = torch.empty_like(x)
-        n = x.numel()
-        if n == 0:
-            return out
-        per_block = _THREADS * 16 // x.element_size()
-        grid = (min(-(-n // per_block), _max_blocks(x.device.index or 0)), 1,
-                1)
-        launcher([ctypes.c_void_p(x.data_ptr()),
-                  ctypes.c_void_p(out.data_ptr()), ctypes.c_longlong(n)],
-                 grid, (_THREADS, 1, 1), 0, x.device)
-        self.launches += 1
-        pallas_kernel.launches += 1
-        return out
+        if x.numel() == 0:
+            return torch.empty_like(x)
+        device = x.get_device()
+        props = torch.cuda.get_device_properties(device)
+        self._geometry[(x.dtype, device)] = (
+            launcher, _THREADS * _UNROLL * 16 // x.element_size(),
+            launcher.occupancy(_THREADS, 0, device) *
+            props.multi_processor_count,
+            props.L2_cache_size // x.element_size(), device)
+        return self(x)
 
 
 def pallas_kernel(fn):
