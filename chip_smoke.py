@@ -24,7 +24,10 @@ In order, it
      fused_ffn_w8a8 at the decode shape in INT4 and INT8, with every row
      live, and at K < H in INT8 with gelu; K4 fused_swiglu_quant at the
      SwiGLU LM's expert shapes (32 experts, 1024 x 2048 x 1024, INT4, silu;
-     a decode step and a prefill chunk of 16,384 routed rows);
+     a decode step and a prefill chunk of 16,384 routed rows); K2 and K4
+     also with the hidden split and row tile the wrapper chose, their
+     profiled device ms per call (the kernel and a split call's combine),
+     and a check that two calls are bitwise equal;
   4. holds the runtime kernels against their twins, timed the same way
      beside one PyTorch call: K9 jit.inject_kernel on a tiled x * s + 1
      injected as CUDA source (float32, [256, 128] and [16384, 2048];
@@ -278,6 +281,15 @@ def bound(moved, ops, bandwidth, peak=BF16_PEAK):
             "bound_by": "bytes" if by_bytes else "operations"}
 
 
+def split_of(x, stream):
+    """The hidden split and row tile K2/K4 choose for x and the stream."""
+    e, c, _ = x.shape
+    split, rows = fused_ffn.split_plan(
+        stream.bits, stream.k, stream.kr, stream.n, e, c, x.element_size(),
+        fused_ffn.sm_count(x.device.index))
+    return {"split": split, "tile_rows": rows}
+
+
 def check_kernels(shape, bandwidth):
     """Both kernels against their twins at one shape; returns two dicts."""
     name, e, c, k, h, n, rows, bias, act = shape
@@ -316,23 +328,30 @@ def check_kernels(shape, bandwidth):
     del w1_dense
 
     # K2: act(x @ W1 + b1) @ W2 + b2
-    got = fused_ffn.fused_ffn_quant(x, stream, counts, activation_fn=act_fn)
+    def k2():
+        return fused_ffn.fused_ffn_quant(x, stream, counts,
+                                         activation_fn=act_fn)
+    got, again = k2(), k2()
     ref = fused_ffn.fused_ffn_quant_reference(x, stream, counts, act_fn)
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref, counts)
+    if not torch.equal(got, again):
+        raise RuntimeError(f"two K2 calls at {name} differ")
     w1_dense = quant.dequantize(w1, torch.bfloat16)
     w2_dense = quant.dequantize(w2, torch.bfloat16)
-    per_expert = stream.wstream[0].numel() + 4 * stream.sb[0].numel()
-    moved = (live_experts * per_expert + live_rows * k * 2
+    # the bytes K2 must read: fc1's packed rows that meet x (K/2 of Kr),
+    # fc2's columns below N, and their scale and bias rows
+    weights = (k * h + h * n) // 2 + 8 * (h + n)
+    moved = (live_experts * weights + live_rows * k * 2
              + e * c * n * 2 + 4 * e)
     ops = 2 * live_rows * (k * h + h * n)
     out.append({
         "name": "fused_ffn_quant", "shape": name,
         "E": e, "C": c, "K": k, "H": h, "N": n, "live_rows": live_rows,
-        "activation": act, "bias": bias,
+        "activation": act, "bias": bias, **split_of(x, stream),
         "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": BF16_TOL,
-        "ms": median_ms(lambda: fused_ffn.fused_ffn_quant(
-            x, stream, counts, activation_fn=act_fn)),
+        "bitwise_repeat": True,
+        "ms": median_ms(k2), "device_ms": device_ms(k2, None),
         "plain_ms": median_ms(lambda: fused_ffn.fused_ffn_quant_reference(
             x, stream, counts, act_fn)),
         "bf16_bmm_ms": median_ms(lambda: torch.bmm(
@@ -425,11 +444,15 @@ def check_swiglu_kernel(shape, bandwidth):
     counts = torch.tensor(rows, dtype=torch.int32, device=dev)
     live_rows = int(counts.sum())
     live_experts = int((counts > 0).sum())
-    got = fused_ffn.fused_swiglu_quant(x, stream, counts)
+    def k4():
+        return fused_ffn.fused_swiglu_quant(x, stream, counts)
+    got, again = k4(), k4()
     ref = fused_ffn.fused_swiglu_quant_reference(x, stream, counts)
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref, counts)
-    del ref
+    if not torch.equal(got, again):
+        raise RuntimeError(f"two K4 calls at {name} differ")
+    del ref, again
     dense = [quant.dequantize(w, torch.bfloat16) for w in ws]
     weights = (2 * k * h + h * n) * bits // 8 + 4 * (2 * h + n)
     moved = (live_experts * weights + live_rows * k * 2 + e * c * n * 2
@@ -437,10 +460,9 @@ def check_swiglu_kernel(shape, bandwidth):
     silu = activations.silu
     r = {"name": "fused_swiglu_quant", "shape": name, "E": e, "C": c, "K": k,
          "H": h, "N": n, "live_rows": live_rows, "bits": bits,
-         "bw": stream.bw, "max_abs_err": abs_err, "max_rel_err": rel_err,
-         "tol": BF16_TOL,
-         "ms": median_ms(lambda: fused_ffn.fused_swiglu_quant(x, stream,
-                                                              counts)),
+         "bw": stream.bw, **split_of(x, stream), "max_abs_err": abs_err,
+         "max_rel_err": rel_err, "tol": BF16_TOL, "bitwise_repeat": True,
+         "ms": median_ms(k4), "device_ms": device_ms(k4, None),
          "plain_ms": median_ms(lambda: fused_ffn.fused_swiglu_quant_reference(
              x, stream, counts)),
          "bf16_bmm_ms": median_ms(lambda: torch.bmm(
@@ -920,14 +942,22 @@ def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed):
             "spec_retries": eng.stats["spec_retries"]}
 
 
-# the CUDA symbol of each ported kernel on the LM paths (K7's two kernels,
-# prefill_attn_kernel and prefill_attn_kernel_tc, share the stem)
-SYMBOLS = {"grouped_gemm_quant": "gmm_quant_kernel",
-           "fused_ffn_quant": "fused_ffn_kernel",
-           "fused_swiglu_quant": "fused_swiglu_kernel",
-           "decode_attn": "decode_attn_kernel",
-           "prefill_attn": "prefill_attn_kernel",
-           "kv_write": "kv_write_kernel"}
+# the CUDA symbols of each ported kernel on the LM paths: the kernel each
+# launch runs once (K7's two kernels, prefill_attn_kernel and
+# prefill_attn_kernel_tc, share the stem), then K2's and K4's combine of a
+# split call
+SYMBOLS = {"grouped_gemm_quant": ("gmm_quant_kernel",),
+           "fused_ffn_quant": ("fused_ffn_kernel", "fused_ffn_combine"),
+           "fused_swiglu_quant": ("fused_swiglu_kernel",
+                                  "fused_swiglu_combine"),
+           "decode_attn": ("decode_attn_kernel",),
+           "prefill_attn": ("prefill_attn_kernel",),
+           "kv_write": ("kv_write_kernel",)}
+
+
+def of_kernel(name, symbols):
+    """Whether a profiled kernel's name belongs to one of `symbols`."""
+    return any(s in name for s in symbols)
 
 
 def device_time(prof):
@@ -972,8 +1002,8 @@ def lm_profile(model, params, seed, steps=16):
         torch.cuda.synchronize()
     by_name, _, busy, span, events = device_time(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    ported = {k: sum(t for n, t in by_name.items() if s in n) / 1e3 / steps
-              for k, s in SYMBOLS.items()}
+    ported = {k: sum(t for n, t in by_name.items() if of_kernel(n, s))
+              / 1e3 / steps for k, s in SYMBOLS.items()}
     return {"steps": steps, "device_events": events,
             "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
             "busy_share": busy / span,
@@ -1009,8 +1039,9 @@ def lm_prefill_profile(model, params, seed, ffn_kernel):
            "device_events": events, "device_busy_ms": busy / 1e3,
            "span_ms": span / 1e3, "busy_share": busy / span}
     for name in ("prefill_attn", ffn_kernel):
-        ms = sum(t for n, t in by_name.items() if SYMBOLS[name] in n) / 1e3
-        n = sum(c for k, c in n_by_name.items() if SYMBOLS[name] in k)
+        ms = sum(t for n, t in by_name.items()
+                 if of_kernel(n, SYMBOLS[name])) / 1e3
+        n = sum(c for k, c in n_by_name.items() if SYMBOLS[name][0] in k)
         if n != launches.get(name):
             raise RuntimeError(f"the profiler saw {n} launches of {name}, "
                                f"its wrapper counted {launches.get(name)}")

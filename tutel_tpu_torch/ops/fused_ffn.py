@@ -22,6 +22,12 @@ with a plain PyTorch twin (`*_reference`) that CPU tensors run:
     (act(x @ W1) * (x @ W2)) @ W3, the hidden rounded to x's dtype after
     the activation and after the product, as in the Pallas kernel.
 
+K2 and K4 split each expert's hidden over S blocks (`split_plan`): a
+block computes its slice of the hidden and that slice's partial of the
+down projection, and with S > 1 a second kernel sums the S partials in
+slice order. `split_slices` is the slice plan the kernels share
+(`ffn_common.cuh` `split_rows`).
+
 Rows at or past counts[e] are zeros; the JAX kernels leave bias-only
 values there, which no caller reads. The JAX package's VMEM gates and
 chunk ladders were TPU devices and are gone: the kernels take any stream
@@ -30,6 +36,8 @@ Requires H >= K.
 """
 
 import dataclasses
+import functools
+import math
 
 import torch
 
@@ -40,6 +48,16 @@ from .quant import QuantizedWeight, int_bmm, quantize_activations, unpack_int4
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # shared memory one block of the fused kernels may use on Hopper (227 KB)
 SMEM_BYTES = 232448
+# the hidden split of K2/K4 (ffn_common.cuh): threads per block, packed rows
+# per unit of a slice, the reduction buffer's bytes; the blocks per SM a
+# grid should reach (the decode kernel's occupancy), and the live 4-row
+# tiles an expert has at decode (top-k routing of a batch gives each
+# expert a handful of rows: 1.5 tiles at 4 rows on average)
+SPLIT_THREADS = 256
+SPLIT_UNIT = 32
+RED_BYTES = SPLIT_THREADS * 17 * 4
+BLOCKS_PER_SM = 2
+DECODE_TILES = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +76,88 @@ class FusedFFNStream:
 
 
 def tile_rows(h, itemsize):
-    """Rows per K2 block: the largest of 16, 8, 4 whose relaid x and hidden
-    ([rows, H] each) fit in shared memory; None if not even 4 fit."""
+    """The largest of 16, 8, 4 rows whose x and hidden ([rows, H] each, at
+    `itemsize` bytes) fit in shared memory; None if not even 4 fit. The
+    prepare functions take a hidden only where 4 float32 rows fit."""
     for rows in (16, 8, 4):
         if 2 * rows * h * itemsize <= SMEM_BYTES:
             return rows
     return None
+
+
+def max_split(kr):
+    """The most slices K2/K4 may split a hidden of kr packed rows into: one
+    per SPLIT_UNIT packed rows, or 1 when kr is not a multiple of it."""
+    return kr // SPLIT_UNIT if kr % SPLIT_UNIT == 0 else 1
+
+
+def split_slices(kr, split):
+    """[(p0, p1)] for each of `split` slices: the packed rows of the down
+    projection each slice owns (`split_rows` in ffn_common.cuh). The
+    kr / SPLIT_UNIT units are dealt out evenly and in order; one slice owns
+    all kr rows. At INT4 slice [p0, p1) needs the hidden columns [p0, p1)
+    and [kr + p0, kr + p1), at INT8 [p0, p1)."""
+    if split == 1:
+        return [(0, kr)]
+    units = kr // SPLIT_UNIT
+    return [(SPLIT_UNIT * (s * units // split),
+             SPLIT_UNIT * ((s + 1) * units // split)) for s in range(split)]
+
+
+def slice_hidden(kr, bits, p0, p1):
+    """The hidden columns slice [p0, p1) computes, in the order the kernel
+    keeps them in shared memory (the low rows, then at INT4 the high)."""
+    cols = list(range(p0, p1))
+    return cols + list(range(kr + p0, kr + p1)) if bits == 4 else cols
+
+
+def split_smem(bits, k, kr, n, split, rows, itemsize):
+    """Dynamic shared memory of one K2/K4 block (`split_smem` in
+    ffn_common.cuh): the reduction buffer; a pass's scale and bias rows
+    (its columns: at most the longest slice's hidden columns, or N rounded
+    up to 16) in float32; x [rows, K]; the longest hidden slice
+    [rows, pack * its packed rows]."""
+    pack = 2 if bits == 4 else 1
+    longest = max(p1 - p0 for p0, p1 in split_slices(kr, split))
+    stage = max(pack * longest, -(-n // 16) * 16)
+    return (RED_BYTES + 8 * stage
+            + rows * pack * (k // pack + longest) * itemsize)
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(bits, k, kr, n, e, c, itemsize, sms, split=None):
+    """(split, tile rows) of a K2/K4 call on `sms` SMs, or None when not
+    even a 4-row tile fits in shared memory.
+
+    A call whose grid of 16-row tiles already holds BLOCKS_PER_SM blocks
+    per SM (a prefill chunk) takes the largest of 16, 8, 4 rows that fits
+    and one slice. Otherwise (a decode step, a few live rows per expert)
+    it takes 4-row tiles, so that no block multiplies many padding rows,
+    and the fewest slices that give E x DECODE_TILES live tiles
+    BLOCKS_PER_SM blocks per SM, at most max_split(kr): the row counts
+    lie on the card, so the plan assumes a decode step's. `split` pins
+    the slices."""
+    target = BLOCKS_PER_SM * sms
+    if e * -(-c // 16) >= target:
+        s, candidates = 1, (16, 8, 4)
+    else:
+        s = min(max_split(kr), math.ceil(target / (DECODE_TILES * e)))
+        candidates = (4,)
+    s = split or s
+    for rows in candidates:
+        if split_smem(bits, k, kr, n, s, rows, itemsize) <= SMEM_BYTES:
+            return s, rows
+    if split is None:             # narrower slices, if they fit
+        for s in range(s + 1, max_split(kr) + 1):
+            if split_smem(bits, k, kr, n, s, 4, itemsize) <= SMEM_BYTES:
+                return s, 4
+    return None
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index):
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tile_cols(qw: QuantizedWeight, bias, ncols, nt, bw, kr):
@@ -331,51 +425,86 @@ def _check_cuda_stream(x, stream: FusedFFNStream):
     return (2 if stream.bits == 4 else 1) * stream.kr
 
 
-def _launch(fn, x, stream: FusedFFNStream, xdata, sx, counts, act, rows):
+def _launch(fn, x, stream: FusedFFNStream, head, counts, act, rows,
+            split=None, vec=None):
     """Allocate the output and launch the kernel of wrapper `fn` (K2, K3 or
-    K4, built from `csrc/<fn name>.cu`) over the stream; xdata is what the
-    kernel reads for x, sx K3's row scales (else None)."""
+    K4, built from `csrc/<fn name>.cu`) over the stream; head holds the
+    pointers the kernel reads for x (x, or K3's int8 x and row scales).
+    K2/K4 also take their hidden split and load width, and with split > 1
+    a float32 workspace [split, E, C, N] for the partials."""
     name = fn.__name__
     e, c, k = x.shape
+    dev = x.device.index
     cnt = counts_i32(counts, e, c, x.device)
     out = torch.empty((e, c, stream.n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = build.load(name)
-    cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
-    head = [xdata.data_ptr()] + ([] if sx is None else [sx.data_ptr()])
+    ptrs = [*head, stream.wstream.data_ptr(), stream.sb.data_ptr(),
+            cnt.data_ptr(), out.data_ptr()]
+    ints = [e, c, k, stream.kr, stream.bw, stream.t1, stream.t2, stream.n,
+            stream.bits, act, DTYPE_CODES[x.dtype], rows]
+    if split is not None:
+        ws = (torch.empty((split, e, c, stream.n), dtype=torch.float32,
+                          device=x.device) if split > 1 else None)
+        ptrs.append(None if ws is None else ws.data_ptr())
+        ints += [split, vec]
     rc = getattr(lib, name + "_launch")(
-        *head, stream.wstream.data_ptr(), stream.sb.data_ptr(),
-        cnt.data_ptr(), out.data_ptr(), e, c, k, stream.kr, stream.bw,
-        stream.t1, stream.t2, stream.n, stream.bits, act,
-        DTYPE_CODES[x.dtype], rows, x.device.index or 0, cuda_stream)
+        *ptrs, *ints, dev, torch._C._cuda_getCurrentRawStream(dev))
     build.check(lib, rc, name)
     fn.launches += 1
     return out
 
 
+def _check_split(split, vec, stream: FusedFFNStream):
+    """Raise unless `split` (None = the plan's choice) and `vec` are ones
+    K2/K4 take for this stream."""
+    if split is not None and not 1 <= split <= max_split(stream.kr):
+        raise ValueError(f"split must be in [1, {max_split(stream.kr)}] for "
+                         f"Kr={stream.kr} (a multiple of {SPLIT_UNIT} packed "
+                         f"rows per slice), got {split}")
+    if vec not in (4, 16):
+        raise ValueError(f"vec must be 4 or 16 bytes, got {vec}")
+
+
+def _launch_split(fn, label, x, stream: FusedFFNStream, counts, act, split,
+                  vec):
+    """Launch K2 or K4 with the split and tile rows of `split_plan`."""
+    w = _check_cuda_stream(x, stream)
+    e, c, _ = x.shape
+    plan = split_plan(stream.bits, stream.k, stream.kr, stream.n, e, c,
+                      x.element_size(), sm_count(x.device.index), split)
+    if plan is None:
+        raise ValueError(f"{label} needs a hidden width whose 4-row tile fits "
+                         f"in {SMEM_BYTES} bytes of shared memory; got H={w}, "
+                         f"{x.dtype}")
+    if stream.bw % vec:           # a load never crosses a tile
+        vec = 4
+    return _launch(fn, x, stream, [x.data_ptr()], counts, act, plan[1],
+                   plan[0], vec)
+
+
 def fused_ffn_quant(x, stream: FusedFFNStream, counts=None,
-                    activation_fn=gelu):
+                    activation_fn=gelu, *, split=None, vec=16):
     """out[e] = act(x[e] @ W1[e] * s1 + b1) @ W2[e] * s2 + b2, one kernel.
 
     x: [E, C, K] float32/bfloat16; counts: [E] live rows per expert (None =
     all). Returns [E, C, N] in x.dtype; rows >= counts[e] are zeros. CPU
     tensors run the plain twin; CUDA tensors run kernel K2, and anything
     the kernel does not take (another activation, dtype or layout) raises.
+    `split` pins the kernel's slices of the hidden (None: `split_plan`'s
+    choice) and `vec` the bytes a thread of a 4-row tile loads of a packed
+    row (16 or 4); tests and tools set them, CPU tensors only check them.
     """
     _check_x("fused_ffn_quant", x, stream)
+    _check_split(split, vec, stream)
     if x.device.type == "cpu":
         return fused_ffn_quant_reference(x, stream, counts, activation_fn)
     act = kernel_code(activation_fn)
     if act not in (0, 1):
         raise ValueError(f"K2 takes relu or gelu, not {activation_fn!r}")
-    w = _check_cuda_stream(x, stream)
-    rows = tile_rows(w, x.element_size())
-    if rows is None:
-        raise ValueError(f"K2 needs a hidden width whose 4-row tile fits in "
-                         f"{SMEM_BYTES} bytes of shared memory; got H={w}, "
-                         f"{x.dtype}")
-    return _launch(fused_ffn_quant, x, stream, x, None, counts, act, rows)
+    return _launch_split(fused_ffn_quant, "K2", x, stream, counts, act, split,
+                         vec)
 
 
 fused_ffn_quant.launches = 0
@@ -411,30 +540,27 @@ def fused_ffn_w8a8(x, stream: FusedFFNStream, counts=None,
                          f"in {SMEM_BYTES} bytes of shared memory; got "
                          f"Kr={stream.kr}, K={stream.k}, H={w}")
     xq, sx = quantize_activations(x)
-    return _launch(fused_ffn_w8a8, x, stream, xq, sx, counts, act, rows)
+    return _launch(fused_ffn_w8a8, x, stream, [xq.data_ptr(), sx.data_ptr()],
+                   counts, act, rows)
 
 
 fused_ffn_w8a8.launches = 0
 
 
 def fused_swiglu_quant(x, stream: FusedFFNStream, counts=None,
-                       activation_fn=silu):
+                       activation_fn=silu, *, split=None, vec=16):
     """out[e] = (act(x[e] @ W1) * (x[e] @ W2)) @ W3 in one kernel over the
     `prepare_fused_swiglu` stream, no biases; the hidden is rounded to x's
-    dtype as in the Pallas kernel. Same rows as `fused_ffn_quant`. CPU
-    tensors run the plain twin; CUDA tensors run kernel K4, and anything
-    the kernel does not take raises."""
+    dtype as in the Pallas kernel. Same rows, `split` and `vec` as
+    `fused_ffn_quant`. CPU tensors run the plain twin; CUDA tensors run
+    kernel K4, and anything the kernel does not take raises."""
     _check_x("fused_swiglu_quant", x, stream)
+    _check_split(split, vec, stream)
     if x.device.type == "cpu":
         return fused_swiglu_quant_reference(x, stream, counts, activation_fn)
     act = kernel_code(activation_fn)
-    w = _check_cuda_stream(x, stream)
-    rows = tile_rows(w, x.element_size())
-    if rows is None:
-        raise ValueError(f"K4 needs a hidden width whose 4-row tile fits in "
-                         f"{SMEM_BYTES} bytes of shared memory; got H={w}, "
-                         f"{x.dtype}")
-    return _launch(fused_swiglu_quant, x, stream, x, None, counts, act, rows)
+    return _launch_split(fused_swiglu_quant, "K4", x, stream, counts, act,
+                         split, vec)
 
 
 fused_swiglu_quant.launches = 0
