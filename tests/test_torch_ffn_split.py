@@ -69,21 +69,30 @@ def test_every_hidden_column_has_one_slice(bits, h, split):
 
 
 def test_split_plan_fills_the_card_at_decode_only():
-    """At 132 SMs the LM decode step (32 experts, one 16-row tile each)
-    takes 4-row tiles and the fewest slices that give the experts' live
-    tiles two blocks an SM; a prefill chunk (32 x 512 tiles of 16 rows) is
-    not split; a pinned split is kept; where 16 rows do not fit, fewer
-    do."""
+    """At 132 SMs the LM decode step (64 tokens x top-2 on 32 experts of
+    capacity 16; 32 tokens at capacity 8) takes 4-row tiles and the most
+    slices whose expected live tiles fit in one wave of two blocks an SM;
+    the MoE decode step, whose live tiles fill 2/3 of a wave, two; a
+    prefill chunk (16,384 routed rows, 32 x 32 live tiles of 16 rows) is
+    not split; a pinned split is kept; where 16 rows do not fit, fewer do;
+    with no routed count every row counts as live."""
     lm = dict(bits=4, k=1024, kr=1024, n=1024, e=32, itemsize=2, sms=132)
-    split, rows = tfp.split_plan(c=16, **lm)
-    tiles = tfp.DECODE_TILES * 32
-    assert rows == 4 and split == 6
-    assert tiles * split >= tfp.BLOCKS_PER_SM * 132 > tiles * (split - 1)
+    wave = tfp.BLOCKS_PER_SM * 132
+    for c, routed, want in ((16, 128, 6), (8, 64, 8)):
+        split, rows = tfp.split_plan(c=c, routed=routed, **lm)
+        tiles = tfp.live_tiles(32, c, routed, 4)
+        assert (split, rows) == (want, 4)
+        assert tiles * split <= wave < tiles * (split + 1)
+    assert tfp.split_plan(c=8192, routed=16384, **lm) == (1, 16)
     assert tfp.split_plan(c=8192, **lm) == (1, 16)
-    assert tfp.split_plan(c=16, split=3, **lm) == (3, 4)
+    assert tfp.split_plan(c=16, routed=128, split=3, **lm) == (3, 4)
     assert tfp.split_plan(c=8192, split=2, **lm) == (2, 16)
+    assert tfp.split_plan(c=16, **lm) == (2, 4)       # 128 live tiles
+    # the MoE server's decode step (512 routed rows on 128 experts): its
+    # plan does not turn on the capacity, only on the rows
     moe = dict(bits=4, k=2048, kr=1024, n=2048, e=128, itemsize=2, sms=132)
-    assert tfp.split_plan(c=32, **moe) == (2, 4)
+    for c in (32, 33, 48):
+        assert tfp.split_plan(c=c, routed=512, **moe) == (2, 4)
     # float32 at K = H = 2048 and S = 1: 16 rows of x and hidden do not fit
     assert tfp.split_plan(c=8192, **dict(moe, itemsize=4)) == (1, 8)
     # kr not a multiple of SPLIT_UNIT: never split
@@ -92,7 +101,28 @@ def test_split_plan_fills_the_card_at_decode_only():
                           sms=132) == (1, 4)
 
 
+@pytest.mark.parametrize("e,c,routed", [
+    (32, 16, 128), (32, 8, 64), (128, 32, 512), (128, 16, 256),
+    (32, 8192, 16384), (4, 20, 3), (1, 8, 5)])
+def test_live_tiles_is_the_mean_of_random_routings(e, c, routed):
+    """The live tiles `split_plan` expects from a routed count are the mean
+    over random routings of that many rows (numpy multinomial draws, the
+    row counts clipped at the capacity), within 2%, for 4- and 16-row
+    tiles."""
+    rng = np.random.default_rng(e + c + routed)
+    draws = np.minimum(rng.multinomial(routed, [1 / e] * e, size=4000), c)
+    for rows in (4, 16):
+        mean = float((-(-draws // rows)).sum(axis=1).mean())
+        got = tfp.live_tiles(e, c, routed, rows)
+        assert abs(got - mean) <= 0.02 * mean + 1e-9, (rows, got, mean)
+    assert tfp.live_tiles(e, c, None, 4) == e * -(-c // 4)
+    assert tfp.live_tiles(e, c, 0, 4) == 0
+
+
 def test_wrappers_check_split_and_vec_on_the_cpu():
+    """A split outside [1, Kr / SPLIT_UNIT] raises on the CPU too; the load
+    width is the kernel's own choice (no `vec` argument); a pinned split
+    or a routed count runs the twin there."""
     x, jst = _inputs("ffn", 4, 256, "float32")
     st = convert.from_jax_params(jst, "cpu")
     for fn in (tfp.fused_ffn_quant, tfp.fused_swiglu_quant):
@@ -104,10 +134,10 @@ def test_wrappers_check_split_and_vec_on_the_cpu():
             fn(xt, st, split=5)                  # Kr = 128: at most 4
         with pytest.raises(ValueError, match="split must be in"):
             fn(xt, st, split=0)
-        with pytest.raises(ValueError, match="vec must be"):
-            fn(xt, st, vec=8)
+        with pytest.raises(TypeError, match="vec"):
+            fn(xt, st, vec=4)
         before = fn.launches
-        fn(xt, st, split=4, vec=4)               # the twin, no launch
+        fn(xt, st, split=4, routed=9)            # the twin, no launch
         assert fn.launches == before
 
 

@@ -66,17 +66,19 @@ def test_grouped_gemm_quant_kernel_matches_twin(cuda, dtype, bits, blocks):
 @pytest.mark.parametrize("c", [20, 1100])
 @pytest.mark.parametrize("split", [1, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bits,use_bias,act,k,n", [
-    (4, True, activations.gelu, 128, 96),           # K < H, N < bw
-    (4, False, activations.relu, 256, 192),         # n < t2 * bw
-    (8, True, activations.relu, 128, 192),
-    (8, False, activations.gelu, 256, 96),
+@pytest.mark.parametrize("bits,use_bias,act,k,n,bw", [
+    (4, True, activations.gelu, 128, 96, 128),      # K < H, N < bw
+    (4, False, activations.relu, 256, 192, 128),    # n < t2 * bw
+    (8, True, activations.relu, 128, 192, 128),
+    (8, False, activations.gelu, 256, 96, 128),
+    (4, True, activations.relu, 128, 96, 8),        # bw % 16: 4-byte loads
 ])
 def test_fused_ffn_quant_kernel_matches_twin(cuda, dtype, bits, use_bias,
-                                             act, k, n, split, c):
+                                             act, k, n, bw, split, c):
     """K2 with its hidden split pinned to 1, 2 or 8 slices (the slices'
-    combine kernel for 2 and 8), at both load widths, against the twin;
-    an empty expert, an odd live count, 4-row tiles at 20 rows an expert
+    combine kernel for 2 and 8) against the twin; an empty expert, odd live
+    counts, a full expert, 4-row tiles at 20 rows an expert (16-byte loads
+    of a packed row, 4-byte where the tile width is not a multiple of 16)
     and 16-row tiles (with 4, 8 and 16 live rows) at 1100; two calls
     bitwise equal."""
     g = torch.Generator(device=cuda).manual_seed(bits * 2 + k)
@@ -87,25 +89,24 @@ def test_fused_ffn_quant_kernel_matches_twin(cuda, dtype, bits, use_bias,
     b1 = torch.randn(e, h, generator=g, device=cuda) * 0.1 if use_bias else None
     b2 = torch.randn(e, n, generator=g, device=cuda) * 0.1 if use_bias else None
     st = fused_ffn.prepare_fused_ffn(quant.quantize(w1, bits),
-                                     quant.quantize(w2, bits), b1, b2, bw=128)
+                                     quant.quantize(w2, bits), b1, b2, bw=bw)
     counts = _counts(e, c, cuda, k)
     counts[1] = 7                                   # an odd live count
     counts[2] = c - 11              # 1089: a 16-row tile with one row
     ref = fused_ffn.fused_ffn_quant_reference(x, st, counts, act)
-    for vec in (16, 4):
-        before = fused_ffn.fused_ffn_quant.launches
-        got = fused_ffn.fused_ffn_quant(x, st, counts, activation_fn=act,
-                                        split=split, vec=vec)
-        again = fused_ffn.fused_ffn_quant(x, st, counts, activation_fn=act,
-                                          split=split, vec=vec)
-        torch.cuda.synchronize()
-        assert fused_ffn.fused_ffn_quant.launches == before + 2
-        assert got.shape == (e, c, n)
-        assert _rel_err(got, ref, counts) <= TOL[dtype], vec
-        assert torch.equal(got, again)
-        dead = (torch.arange(c, device=cuda)[None, :, None]
-                >= counts[:, None, None])
-        assert not torch.any(torch.where(dead, got.float(), 0.0))
+    before = fused_ffn.fused_ffn_quant.launches
+    got = fused_ffn.fused_ffn_quant(x, st, counts, activation_fn=act,
+                                    split=split)
+    again = fused_ffn.fused_ffn_quant(x, st, counts, activation_fn=act,
+                                      split=split)
+    torch.cuda.synchronize()
+    assert fused_ffn.fused_ffn_quant.launches == before + 2
+    assert got.shape == (e, c, n)
+    assert _rel_err(got, ref, counts) <= TOL[dtype]
+    assert torch.equal(got, again)
+    dead = (torch.arange(c, device=cuda)[None, :, None]
+            >= counts[:, None, None])
+    assert not torch.any(torch.where(dead, got.float(), 0.0))
     with pytest.raises(ValueError, match="no CUDA kernel"):
         fused_ffn.fused_ffn_quant(x, st, counts, activation_fn=torch.tanh)
 

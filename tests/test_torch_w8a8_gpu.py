@@ -123,42 +123,47 @@ def test_fused_ffn_w8a8_kernel_matches_twin(cuda, dtype, bits, bias, act, k):
     assert _dead_rows_zero(got, counts)
 
 
-@pytest.mark.parametrize("c", [20, 1100])
-@pytest.mark.parametrize("split", [1, 2, 8])
+# (bits, (E, C, K, H, N), bw): the C given is replaced by 20 and 1100
+SWIGLU_SHAPES = [
+    (4, (4, 20, 256, 512, 384), 128),               # N != H
+    (8, (3, 20, 128, 256, 256), 128),               # K < H
+    (4, (3, 20, 128, 256, 256), 128),
+    (4, (3, 20, 128, 512, 96), 128),                # N < bw
+    (4, (3, 20, 128, 512, 96), 8),                  # bw % 16: 4-byte loads
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bits,shape", [
-    (4, (4, 20, 256, 512, 384)),                    # N != H
-    (8, (3, 20, 128, 256, 256)),                    # K < H
-    (4, (3, 20, 128, 512, 96)),                     # N < bw
-])
-def test_fused_swiglu_kernel_matches_twin(cuda, dtype, bits, shape, split,
-                                          c):
-    """K4 with its hidden split pinned to 1, 2 or 8 slices, at both load
-    widths, against the twin; an empty expert, an odd live count, 4-row
-    tiles at 20 rows an expert and 16-row tiles at 1100; two calls
-    bitwise equal."""
+@pytest.mark.parametrize("bits,shape,bw,split,c", [
+    (bits, shape, bw, split, c) for bits, shape, bw in SWIGLU_SHAPES
+    for split in (1, 2, 8) for c in (20, 1100)
+    # H = 256 at INT4: 128 packed rows hold at most 4 slices
+    if split <= (shape[3] // 2 if bits == 4 else shape[3]) // 32])
+def test_fused_swiglu_kernel_matches_twin(cuda, dtype, bits, shape, bw,
+                                          split, c):
+    """K4 with its hidden split pinned to 1, 2 or 8 slices against the
+    twin; an empty expert, an odd live count, a full expert, 4-row tiles
+    at 20 rows an expert (16-byte loads, 4-byte where the tile width is
+    not a multiple of 16) and 16-row tiles at 1100 (an odd count of 1089
+    leaves a 16-row tile one row); two calls bitwise equal."""
     e, _, k, h, n = shape
     g = torch.Generator(device=cuda).manual_seed(bits + k)
     x = torch.randn(e, c, k, generator=g, device=cuda).to(dtype)
     ws = [quant.quantize(torch.randn(*s, generator=g, device=cuda) * 0.05,
                          bits) for s in ((e, k, h), (e, k, h), (e, h, n))]
-    st = fused_ffn.prepare_fused_swiglu(*ws, bw=128)
+    st = fused_ffn.prepare_fused_swiglu(*ws, bw=bw)
     counts = _counts(e, c, cuda, h)
-    counts[1] = 7                                   # an odd live count
-    counts[2] = c - 11              # 1089: a 16-row tile with one row
+    counts[1] = 7 if c == 20 else c - 11            # an odd live count
     ref = fused_ffn.fused_swiglu_quant_reference(x, st, counts)
     tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
-    for vec in (16, 4):
-        before = fused_ffn.fused_swiglu_quant.launches
-        got = fused_ffn.fused_swiglu_quant(x, st, counts, split=split,
-                                           vec=vec)
-        again = fused_ffn.fused_swiglu_quant(x, st, counts, split=split,
-                                             vec=vec)
-        torch.cuda.synchronize()
-        assert fused_ffn.fused_swiglu_quant.launches == before + 2
-        assert got.shape == (e, c, n) and _rel_err(got, ref, counts) <= tol
-        assert torch.equal(got, again)
-        assert _dead_rows_zero(got, counts)
+    before = fused_ffn.fused_swiglu_quant.launches
+    got = fused_ffn.fused_swiglu_quant(x, st, counts, split=split)
+    again = fused_ffn.fused_swiglu_quant(x, st, counts, split=split)
+    torch.cuda.synchronize()
+    assert fused_ffn.fused_swiglu_quant.launches == before + 2
+    assert got.shape == (e, c, n) and _rel_err(got, ref, counts) <= tol
+    assert torch.equal(got, again)
+    assert _dead_rows_zero(got, counts)
     with pytest.raises(ValueError, match="no CUDA kernel"):
         fused_ffn.fused_swiglu_quant(x, st, counts, activation_fn=torch.tanh)
 

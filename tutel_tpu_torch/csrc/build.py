@@ -36,15 +36,15 @@ SIGNATURES = {
     "grouped_gemm_quant": ("grouped_gemm_quant_launch",
                            [_P] * 5 + [_I] * 8 + [_P]),
     # x, wstream, sb, counts, out, ws; E, C, K, kr, bw, t1, t2, n, bits,
-    # act, dtype, tile_rows, split, vec, device; stream
+    # act, dtype, tile_rows, split, device; stream
     "fused_ffn_quant": ("fused_ffn_quant_launch",
-                        [_P] * 6 + [_I] * 15 + [_P]),
+                        [_P] * 6 + [_I] * 14 + [_P]),
     # xq, sx, wstream, sb, counts, out; E, C, K, kr, bw, t1, t2, n, bits,
     # act, dtype, tile_rows, device; stream
     "fused_ffn_w8a8": ("fused_ffn_w8a8_launch", [_P] * 6 + [_I] * 13 + [_P]),
     # the arguments of fused_ffn_quant
     "fused_swiglu_quant": ("fused_swiglu_quant_launch",
-                           [_P] * 6 + [_I] * 15 + [_P]),
+                           [_P] * 6 + [_I] * 14 + [_P]),
     # xq, sx, w, scales, counts, out; E, C, K, N, bits, dtype, device; stream
     "grouped_gemm_w8a8": ("grouped_gemm_w8a8_launch",
                           [_P] * 6 + [_I] * 7 + [_P]),

@@ -150,23 +150,23 @@ __device__ __forceinline__ int int_sum(int acc) {
 //
 // Inside a block a pass (one weight matrix, or W1 / W2 / W3 at SwiGLU)
 // deals out column groups of VEC adjacent columns to its 256 threads. Each
-// thread loads VEC bytes of a packed row at once (16 or 4: one uint4 or
-// 32-bit load) for 4 packed rows before it uses them, converts the
-// nibbles or bytes to float once per packed row and adds them into
-// acc[ROWS][VEC] (ROWS * VEC <= 64 floats, so 16-byte loads go with tiles
-// of 2 or 4 rows). Where a pass has fewer column groups than threads, the
+// thread loads VEC bytes of a packed row at once (16 at decode where bw
+// allows, else 4: one uint4 or 32-bit load; `dispatch_rows`) for 4 packed
+// rows before it uses them, converts the nibbles or bytes to float once
+// per packed row and adds them into acc[ROWS][VEC] (ROWS * VEC <= 64
+// floats, so 16-byte loads go with tiles of 2 or 4 rows). Where a pass
+// has fewer column groups than threads, the
 // packed rows are split over the idle threads too (kz ways), and the kz
 // float32 partials of each column are summed in shared memory in a fixed
 // order, 16 accumulators at a time: the result never depends on timing.
 // The pass's column scales (and biases) are staged in shared memory while
 // the products run, so its epilogue waits on no global load.
 //
-// What bounds it: at a decode step's 2-4 rows a weight byte costs 4-8
-// FMAs and about 4 conversion instructions on the CUDA cores, against
-// 3.35 TB/s / 132 SMs of bytes, so issue rather than memory sets the pace
-// (measured: about a fifth of the memory rate; PERF.md). Tensor cores
-// (bf16 mma over widened weights) are the next step, queued with the
-// prefill's.
+// At a decode step the kernels stream weights at about a fifth of the
+// memory rate. Their weight loops take 16.4-16.8 instructions per weight
+// byte at 4 rows and 11.5-11.8 at 2 (PERF.md): issuing them fills under
+// half of the main kernel's time, and what fills the rest is not known
+// yet.
 
 constexpr int kSplitThreads = 256;
 constexpr int kSplitUnit = 32;          // packed rows per unit of the split
@@ -275,7 +275,8 @@ __device__ void stage_rows(T* xs, const T* __restrict__ xe, int K,
 // A signed nibble of h at bits [s, s + 4) (s <= 12), times 2^s, as float
 // without an int-to-float conversion: with its sign bit flipped it is the
 // mantissa field of 2^23 + (v + 8) * 2^s, exactly, and one subtraction
-// leaves v * 2^s. The mask and the flip are one LOP3. The same for a
+// leaves v * 2^s: a mask, a flip and a subtraction, which the SASS holds
+// as two LOP3 and one FADD per nibble (PERF.md). The same for a
 // signed byte at bits [s, s + 8) (s <= 8). A 32-bit word of weights is
 // read as its low half h = w and its high half h = w >> 16, so the
 // columns' values come out scaled by 2^0, 2^4, 2^8 or 2^12, and the x
@@ -493,19 +494,17 @@ struct Int {
 };
 
 // Calls f(Int<ROWS>, Int<VEC>): a kernel of 4-row tiles (DECODE) runs
-// ROWS = 2 or 4 with `vec` (16 or 4) bytes per load; the others take the
-// smallest of 4, 8, 16 rows that holds `live` with 4-byte loads, so that
-// ROWS * VEC <= 64 and no instance holds more than 64 accumulators.
+// ROWS = 2 or 4 with 16-byte loads where the tile width bw allows them (a
+// load never crosses a tile), else 4 rows with 4-byte loads; the others
+// take the smallest of 4, 8, 16 rows that holds `live` with 4-byte loads,
+// so that ROWS * VEC <= 64 and no instance holds more than 64
+// accumulators.
 template <bool DECODE, typename F>
-__device__ __forceinline__ void dispatch_rows(int live, int vec, F f) {
+__device__ __forceinline__ void dispatch_rows(int live, int bw, F f) {
   if constexpr (DECODE) {
-    if (live <= 2) {
-      if (vec == 16) f(Int<2>{}, Int<16>{});
-      else f(Int<2>{}, Int<4>{});
-    } else {
-      if (vec == 16) f(Int<4>{}, Int<16>{});
-      else f(Int<4>{}, Int<4>{});
-    }
+    if (bw % 16) f(Int<4>{}, Int<4>{});
+    else if (live <= 2) f(Int<2>{}, Int<16>{});
+    else f(Int<4>{}, Int<16>{});
   } else {
     if (live <= 4) f(Int<4>{}, Int<4>{});
     else if (live <= 8) f(Int<8>{}, Int<4>{});

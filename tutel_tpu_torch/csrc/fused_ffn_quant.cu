@@ -30,8 +30,10 @@
 // slice order, scales and biases once, rounds to T and writes the zeros
 // past counts[e]. A decode call (`fused_ffn.split_plan`) takes tiles of
 // 4 rows, run by a kernel instance of its own at two blocks per SM, and
-// the S that gives the experts' live tiles about two blocks per SM; a
-// prefill chunk fills the card with 16-row tiles and keeps S = 1.
+// the most slices whose live tiles (as the routed rows lead it to expect
+// them) fit in one wave of two blocks per SM, at least two where one slice
+// would leave SMs idle; a prefill chunk fills the card with 16-row tiles
+// and keeps S = 1.
 // Experts with no live rows read no weights. Tensor cores are not used
 // yet.
 
@@ -82,7 +84,7 @@ fused_ffn_kernel(const T* __restrict__ x, const int8_t* __restrict__ wstream,
                  const float* __restrict__ sb, const int* __restrict__ counts,
                  T* __restrict__ out, float* __restrict__ ws, int C, int K,
                  int kr, int bw, int t1, int t2, int n, int tile_rows,
-                 int split, int vec, int act) {
+                 int split, int act) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.y, e = blockIdx.z, E = gridDim.z;
   const int r0 = blockIdx.x * tile_rows;
@@ -102,7 +104,7 @@ fused_ffn_kernel(const T* __restrict__ x, const int8_t* __restrict__ wstream,
   const int8_t* we = wstream + (size_t)e * T_all * kr * bw;
   const float* sbe = sb + (size_t)e * T_all * 2 * bw;
   float* wse = split == 1 ? nullptr : ws + (((size_t)s * E + e) * C + r0) * n;
-  dispatch_rows<DECODE>(live, vec, [&](auto rows, auto v) {
+  dispatch_rows<DECODE>(live, bw, [&](auto rows, auto v) {
     ffn_slice<T, BITS, decltype(rows)::value, decltype(v)::value>(
         xe, we, sbe, oe, wse, K, kr, bw, t1, n, split, s, live, act, smem);
   });
@@ -121,7 +123,7 @@ template <typename T, int BITS>
 cudaError_t launch(const void* x, const int8_t* wstream, const float* sb,
                    const int* counts, void* out, float* ws, int E, int C,
                    int K, int kr, int bw, int t1, int t2, int n, int tile_rows,
-                   int split, int vec, int act, cudaStream_t stream) {
+                   int split, int act, cudaStream_t stream) {
   const size_t smem = split_smem(BITS, K, kr, n, split, tile_rows, sizeof(T));
   auto kernel = tile_rows == 4 ? fused_ffn_kernel<T, BITS, true>
                                : fused_ffn_kernel<T, BITS, false>;
@@ -131,7 +133,7 @@ cudaError_t launch(const void* x, const int8_t* wstream, const float* sb,
   dim3 grid((C + tile_rows - 1) / tile_rows, split, E);
   kernel<<<grid, kSplitThreads, smem, stream>>>(
       static_cast<const T*>(x), wstream, sb, counts, static_cast<T*>(out), ws,
-      C, K, kr, bw, t1, t2, n, tile_rows, split, vec, act);
+      C, K, kr, bw, t1, t2, n, tile_rows, split, act);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
   fused_ffn_combine<T><<<combine_blocks((size_t)E * C * n), kSplitThreads, 0, stream>>>(
@@ -146,27 +148,26 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = relu, 1 = gelu (tanh).
 // tile_rows in {4, 8, 16}; split >= 1 slices of the hidden (split > 1
 // needs kr % 32 == 0, split <= kr / 32, and ws: a float32 workspace of
-// [split, E, C, n]); vec in {4, 16}, the bytes a thread of a 4-row tile
-// loads of a packed row, with bw % vec == 0. split_smem(bits, K, kr, n,
-// split, tile_rows, sizeof(x)) bytes of shared memory must be allowed per
-// block.
+// [split, E, C, n]); bw % 4 == 0 (4-row tiles load 16 bytes of a packed
+// row where bw % 16 == 0). split_smem(bits, K, kr, n, split, tile_rows,
+// sizeof(x)) bytes of shared memory must be allowed per block.
 // Returns a cudaError_t.
 int fused_ffn_quant_launch(const void* x, const int8_t* wstream, const float* sb,
                            const int* counts, void* out, float* ws, int E,
                            int C, int K, int kr, int bw, int t1, int t2, int n,
                            int bits, int act, int dtype, int tile_rows,
-                           int split, int vec, int device, void* stream) {
+                           int split, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     err = bits == 4
-              ? launch<__nv_bfloat16, 4>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, vec, act, s)
-              : launch<__nv_bfloat16, 8>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, vec, act, s);
+              ? launch<__nv_bfloat16, 4>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, act, s)
+              : launch<__nv_bfloat16, 8>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, act, s);
   } else {
     err = bits == 4
-              ? launch<float, 4>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, vec, act, s)
-              : launch<float, 8>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, vec, act, s);
+              ? launch<float, 4>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, act, s)
+              : launch<float, 8>(x, wstream, sb, counts, out, ws, E, C, K, kr, bw, t1, t2, n, tile_rows, split, act, s);
   }
   return (int)err;
 }

@@ -77,7 +77,8 @@ class LlamaFFNNetwork:
         stream = params.get("fused_stream")
         if stream is not None:
             return fused_swiglu_quant(x, stream, counts,
-                                      activation_fn=self.activation_fn)
+                                      activation_fn=self.activation_fn,
+                                      routed=getattr(ctx, "routed", None))
         y1 = grouped_gemm_quant(x, params["w1"], counts)
         y2 = grouped_gemm_quant(x, params["w2"], counts)
         y = self.activation_fn(y1) * y2

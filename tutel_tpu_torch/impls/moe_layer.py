@@ -237,9 +237,14 @@ class MOELayer:
 
         crit, l_aux = self._routing(gate_params, x2, gate_index, top_k,
                                     capacity, training, key, token_mask)
+        # routed: the rows the experts get, known on the host (the fused
+        # kernels plan their grid from it; the counts lie on the device)
+        routed = top_k * (samples if valid_tokens is None
+                          else min(samples, int(vt[0])))
         ctx = SimpleNamespace(megablocks_size=megablocks_size,
                               dispatch_count=crit.dispatch_count,
-                              num_global_experts=self.num_global_experts)
+                              num_global_experts=self.num_global_experts,
+                              routed=routed)
         y = dispatch_ops.fast_encode(x2, crit, self.is_postscore)
         y = self.experts.apply(params["experts"], y, ctx)
         out = dispatch_ops.fast_decode(y, crit, self.is_postscore)

@@ -49,15 +49,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # shared memory one block of the fused kernels may use on Hopper (227 KB)
 SMEM_BYTES = 232448
 # the hidden split of K2/K4 (ffn_common.cuh): threads per block, packed rows
-# per unit of a slice, the reduction buffer's bytes; the blocks per SM a
-# grid should reach (the decode kernel's occupancy), and the live 4-row
-# tiles an expert has at decode (top-k routing of a batch gives each
-# expert a handful of rows: 1.5 tiles at 4 rows on average)
+# per unit of a slice, the reduction buffer's bytes, and the blocks per SM
+# a grid should reach (the decode kernel's occupancy)
 SPLIT_THREADS = 256
 SPLIT_UNIT = 32
 RED_BYTES = SPLIT_THREADS * 17 * 4
 BLOCKS_PER_SM = 2
-DECODE_TILES = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,23 +122,52 @@ def split_smem(bits, k, kr, n, split, rows, itemsize):
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(bits, k, kr, n, e, c, itemsize, sms, split=None):
+def live_tiles(e, c, routed, rows):
+    """The row tiles of `rows` rows that hold a live row, over e experts of
+    capacity c, expected when `routed` rows fall on the experts uniformly
+    at random (top-k routing by a balanced gate): e * E[ceil(min(m, c) /
+    rows)], m ~ Binomial(routed, 1 / e). routed=None: every row is live."""
+    if routed is None:
+        return e * -(-c // rows)
+    if e == 1:
+        return -(-min(routed, c) // rows)
+    lp, lq = math.log(1 / e), math.log1p(-1 / e)
+    total = below = 0.0
+    # m more than 12 standard deviations from the mean adds under 1e-30
+    mean, sd = routed / e, math.sqrt(routed / e)
+    for m in range(max(0, int(mean - 12 * sd)),
+                   min(routed, c, int(mean + 12 * sd) + 2)):
+        pm = math.exp(math.lgamma(routed + 1) - math.lgamma(m + 1)
+                      - math.lgamma(routed - m + 1) + m * lp
+                      + (routed - m) * lq)
+        total += pm * -(-m // rows)
+        below += pm
+    return e * (total + max(0.0, 1.0 - below) * -(-min(routed, c) // rows))
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(bits, k, kr, n, e, c, itemsize, sms, split=None, routed=None):
     """(split, tile rows) of a K2/K4 call on `sms` SMs, or None when not
     even a 4-row tile fits in shared memory.
 
-    A call whose grid of 16-row tiles already holds BLOCKS_PER_SM blocks
-    per SM (a prefill chunk) takes the largest of 16, 8, 4 rows that fits
-    and one slice. Otherwise (a decode step, a few live rows per expert)
-    it takes 4-row tiles, so that no block multiplies many padding rows,
-    and the fewest slices that give E x DECODE_TILES live tiles
-    BLOCKS_PER_SM blocks per SM, at most max_split(kr): the row counts
-    lie on the card, so the plan assumes a decode step's. `split` pins
-    the slices."""
+    `routed` is the rows the caller routed to the experts (tokens x top-k,
+    known on the host; None: all E x C): the row counts lie on the card,
+    so the plan reads the live tiles they are expected to fill
+    (`live_tiles`). A call whose live 16-row tiles already give
+    BLOCKS_PER_SM blocks per SM (a prefill chunk) takes the largest of 16,
+    8, 4 rows that fits and one slice. Otherwise (a decode step, a few live
+    rows per expert) it takes 4-row tiles, so that no block multiplies many
+    padding rows, and the most slices whose live blocks fit in one wave of
+    BLOCKS_PER_SM blocks per SM (a second, partial wave costs more than
+    the wider slices save), but two where one slice would leave SMs idle;
+    at most max_split(kr). `split` pins the slices."""
     target = BLOCKS_PER_SM * sms
-    if e * -(-c // 16) >= target:
+    if live_tiles(e, c, routed, 16) >= target:
         s, candidates = 1, (16, 8, 4)
     else:
-        s = min(max_split(kr), math.ceil(target / (DECODE_TILES * e)))
+        tiles = max(live_tiles(e, c, routed, 4), 1.0)
+        s = max(int(target // tiles), 2 if tiles < target else 1)
+        s = min(max_split(kr), s)
         candidates = (4,)
     s = split or s
     for rows in candidates:
@@ -426,12 +452,12 @@ def _check_cuda_stream(x, stream: FusedFFNStream):
 
 
 def _launch(fn, x, stream: FusedFFNStream, head, counts, act, rows,
-            split=None, vec=None):
+            split=None):
     """Allocate the output and launch the kernel of wrapper `fn` (K2, K3 or
     K4, built from `csrc/<fn name>.cu`) over the stream; head holds the
     pointers the kernel reads for x (x, or K3's int8 x and row scales).
-    K2/K4 also take their hidden split and load width, and with split > 1
-    a float32 workspace [split, E, C, N] for the partials."""
+    K2/K4 also take their hidden split, and with split > 1 a float32
+    workspace [split, E, C, N] for the partials."""
     name = fn.__name__
     e, c, k = x.shape
     dev = x.device.index
@@ -448,7 +474,7 @@ def _launch(fn, x, stream: FusedFFNStream, head, counts, act, rows,
         ws = (torch.empty((split, e, c, stream.n), dtype=torch.float32,
                           device=x.device) if split > 1 else None)
         ptrs.append(None if ws is None else ws.data_ptr())
-        ints += [split, vec]
+        ints.append(split)
     rc = getattr(lib, name + "_launch")(
         *ptrs, *ints, dev, torch._C._cuda_getCurrentRawStream(dev))
     build.check(lib, rc, name)
@@ -456,55 +482,53 @@ def _launch(fn, x, stream: FusedFFNStream, head, counts, act, rows,
     return out
 
 
-def _check_split(split, vec, stream: FusedFFNStream):
-    """Raise unless `split` (None = the plan's choice) and `vec` are ones
-    K2/K4 take for this stream."""
+def _check_split(split, stream: FusedFFNStream):
+    """Raise unless `split` (None = the plan's choice) is one K2/K4 take
+    for this stream."""
     if split is not None and not 1 <= split <= max_split(stream.kr):
         raise ValueError(f"split must be in [1, {max_split(stream.kr)}] for "
                          f"Kr={stream.kr} (a multiple of {SPLIT_UNIT} packed "
                          f"rows per slice), got {split}")
-    if vec not in (4, 16):
-        raise ValueError(f"vec must be 4 or 16 bytes, got {vec}")
 
 
 def _launch_split(fn, label, x, stream: FusedFFNStream, counts, act, split,
-                  vec):
+                  routed):
     """Launch K2 or K4 with the split and tile rows of `split_plan`."""
     w = _check_cuda_stream(x, stream)
     e, c, _ = x.shape
     plan = split_plan(stream.bits, stream.k, stream.kr, stream.n, e, c,
-                      x.element_size(), sm_count(x.device.index), split)
+                      x.element_size(), sm_count(x.device.index), split,
+                      routed)
     if plan is None:
         raise ValueError(f"{label} needs a hidden width whose 4-row tile fits "
                          f"in {SMEM_BYTES} bytes of shared memory; got H={w}, "
                          f"{x.dtype}")
-    if stream.bw % vec:           # a load never crosses a tile
-        vec = 4
     return _launch(fn, x, stream, [x.data_ptr()], counts, act, plan[1],
-                   plan[0], vec)
+                   plan[0])
 
 
 def fused_ffn_quant(x, stream: FusedFFNStream, counts=None,
-                    activation_fn=gelu, *, split=None, vec=16):
+                    activation_fn=gelu, *, routed=None, split=None):
     """out[e] = act(x[e] @ W1[e] * s1 + b1) @ W2[e] * s2 + b2, one kernel.
 
     x: [E, C, K] float32/bfloat16; counts: [E] live rows per expert (None =
     all). Returns [E, C, N] in x.dtype; rows >= counts[e] are zeros. CPU
     tensors run the plain twin; CUDA tensors run kernel K2, and anything
     the kernel does not take (another activation, dtype or layout) raises.
-    `split` pins the kernel's slices of the hidden (None: `split_plan`'s
-    choice) and `vec` the bytes a thread of a 4-row tile loads of a packed
-    row (16 or 4); tests and tools set them, CPU tensors only check them.
+    `routed`: the rows routed to the experts, known on the host (the MoE
+    layer passes tokens x top-k; None: all E x C), from which `split_plan`
+    reads how many live tiles the counts hold. `split` pins the kernel's
+    slices of the hidden (tests and tools; CPU tensors only check it).
     """
     _check_x("fused_ffn_quant", x, stream)
-    _check_split(split, vec, stream)
+    _check_split(split, stream)
     if x.device.type == "cpu":
         return fused_ffn_quant_reference(x, stream, counts, activation_fn)
     act = kernel_code(activation_fn)
     if act not in (0, 1):
         raise ValueError(f"K2 takes relu or gelu, not {activation_fn!r}")
     return _launch_split(fused_ffn_quant, "K2", x, stream, counts, act, split,
-                         vec)
+                         routed)
 
 
 fused_ffn_quant.launches = 0
@@ -548,19 +572,19 @@ fused_ffn_w8a8.launches = 0
 
 
 def fused_swiglu_quant(x, stream: FusedFFNStream, counts=None,
-                       activation_fn=silu, *, split=None, vec=16):
+                       activation_fn=silu, *, routed=None, split=None):
     """out[e] = (act(x[e] @ W1) * (x[e] @ W2)) @ W3 in one kernel over the
     `prepare_fused_swiglu` stream, no biases; the hidden is rounded to x's
-    dtype as in the Pallas kernel. Same rows, `split` and `vec` as
+    dtype as in the Pallas kernel. Same rows, `routed` and `split` as
     `fused_ffn_quant`. CPU tensors run the plain twin; CUDA tensors run
     kernel K4, and anything the kernel does not take raises."""
     _check_x("fused_swiglu_quant", x, stream)
-    _check_split(split, vec, stream)
+    _check_split(split, stream)
     if x.device.type == "cpu":
         return fused_swiglu_quant_reference(x, stream, counts, activation_fn)
     act = kernel_code(activation_fn)
     return _launch_split(fused_swiglu_quant, "K4", x, stream, counts, act,
-                         split, vec)
+                         split, routed)
 
 
 fused_swiglu_quant.launches = 0

@@ -90,7 +90,8 @@ def quantized_ffn(x, params, ctx, activation_fn, output_dim):
 
     stream = params.get("fused_stream")
     if stream is not None and stream.n >= output_dim:
-        out = fused_ffn_quant(x, stream, counts, activation_fn=activation_fn)
+        out = fused_ffn_quant(x, stream, counts, activation_fn=activation_fn,
+                              routed=getattr(ctx, "routed", None))
         return out[..., :output_dim]
     return two_call_ffn(grouped_gemm_quant, x, params, counts, activation_fn,
                         output_dim)
