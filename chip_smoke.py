@@ -60,9 +60,13 @@ In order, it
      the whole window, K7 at a 128-query chunk starting at 1536, K8 as one
      step's 16 tensors), in INT8, bfloat16 and INT4 caches, and times each
      with its twin and a PyTorch yardstick (scaled_dot_product_attention,
-     the 16 index_put_ calls); K7 also with float32 queries (its CUDA-core
-     kernel) over the INT8 cache, and with its achieved TFLOP/s and share
-     of the bound;
+     the 16 index_put_ calls); K6 also at 8 rows, each with the window
+     split S its wrapper picks, its profiled device ms, host microseconds
+     per call, share of the bytes bound and two calls bitwise equal; K8
+     through the writer prepared for its caches, with device ms and host
+     microseconds beside write_step's; K7 also with float32 queries (its
+     CUDA-core kernel) over the INT8 cache, and with its achieved TFLOP/s
+     and share of the bound;
   8. serves 64 prompts of 1664 tokens, 320 new tokens each, through
      LmDecodeEngine over a TransformerMoE at full width (vocabulary 32768,
      model_dim 1024, 8 heads, 2 KV heads, 4 layers with MoE in 1 and 3, 32
@@ -86,6 +90,7 @@ Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
 """
 
+import hashlib
 import json
 import os
 import re
@@ -722,7 +727,8 @@ def sdpa_ms(q, k_heads, v_heads, mask, profiled=False):
 
 
 def check_decode_attn(mode, bandwidth, b=ATT["b"]):
-    """K6 with fresh rows over the whole window: every row at pos W - 1."""
+    """K6 with fresh rows over the whole window: every row at pos W - 1;
+    two calls must be bitwise equal."""
     nh, kvh, hd, t = (ATT[k] for k in ("nh", "kvh", "hd", "t"))
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     q = torch.randn(b, nh, hd, generator=g, device="cuda").to(torch.bfloat16)
@@ -736,9 +742,15 @@ def check_decode_attn(mode, bandwidth, b=ATT["b"]):
               v_new=vn[:, 0].contiguous(),
               k_new_scale=None if kns is None else kns[..., 0].contiguous(),
               v_new_scale=None if vns is None else vns[..., 0].contiguous())
-    got = da.decode_attn(q, k, v, pos, **kw)
+    def call():
+        return da.decode_attn(q, k, v, pos, **kw)
+
+    got, again = call(), call()
+    split = da.decode_attn.last_split          # the S these calls launched
     ref = da.decode_attn_reference(q, k, v, pos, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"decode_attn ({mode}, B={b}): two calls differ")
     abs_err, err = rel_err(got, ref)
     live = b * (t - 1)                       # cache positions read
     per_pos = 2 * kvh * hd * BYTES_PER_VALUE[mode] + (
@@ -751,12 +763,15 @@ def check_decode_attn(mode, bandwidth, b=ATT["b"]):
             <= pos[:, None])[:, None, None, :]
     mq = nh // kvh
     r = {"name": "decode_attn", "cache": mode, "B": b, "NH": nh, "KVH": kvh,
-         "HD": hd, "W": t, "fresh": True, "max_abs_err": abs_err,
-         "max_rel_err": err, "tol": BF16_TOL,
-         "ms": median_ms(lambda: da.decode_attn(q, k, v, pos, **kw)),
+         "HD": hd, "W": t, "fresh": True, "split": split,
+         "max_abs_err": abs_err, "max_rel_err": err, "tol": BF16_TOL,
+         "bitwise_repeat": True, "ms": median_ms(call),
+         # every kernel of the call (the main kernel and, split, the merge)
+         "device_ms": device_ms(call, None), "host_us": host_us(call),
          "plain_ms": median_ms(
              lambda: da.decode_attn_reference(q, k, v, pos, **kw)),
          **bound(moved, ops, bandwidth)}
+    r["bound_share"] = r["bound_ms"] / r["device_ms"]
     key = "library_ms" if mode == "bfloat16" else "sdpa_dequant_ms"
     r[key] = sdpa_ms(q[:, :, None], kd.repeat(1, mq, 1, 1),
                      vd.repeat(1, mq, 1, 1), mask)
@@ -819,7 +834,9 @@ def check_prefill_attn(mode, bandwidth, tq=128, start=1536,
 
 def check_kv_write(bandwidth, layers=4):
     """K8 as one decode step of the LM server: per layer K, V int8
-    [64, 2048, 256] and their scales f32 [64, 2, 2048]; exact."""
+    [64, 2048, 256] and their scales f32 [64, 2, 2048]; exact, through
+    write_step and through the writer prepared for the caches (the
+    decode step's route), timed through the prepared writer."""
     b, kvh, hd, t = (ATT[k] for k in ("b", "kvh", "hd", "t"))
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
     rows_c = [torch.randint(-127, 128, (b, t, kvh * hd), generator=g,
@@ -834,13 +851,21 @@ def check_kv_write(bandwidth, layers=4):
             for _ in range(2 * layers)]
     pos = torch.randint(0, t, (b,), generator=g, device="cuda",
                         dtype=torch.int32)
-    want_r = [c.clone() for c in rows_c]
-    want_c = [c.clone() for c in cols_c]
-    kv_write.write_step_reference(want_r, rows, pos, want_c, cols)
-    kv_write.write_step(rows_c, rows, pos, col_caches=cols_c, cols=cols)
-    torch.cuda.synchronize()
-    diff = max(float((a.float() - w.float()).abs().max())
-               for a, w in zip(rows_c + cols_c, want_r + want_c))
+    writer = kv_write.prepare(rows_c, cols_c)
+    diff = 0.0
+    for write in (lambda: kv_write.write_step(rows_c, rows, pos,
+                                              col_caches=cols_c, cols=cols),
+                  lambda: writer(rows, pos, cols)):
+        want_r = [c.clone() for c in rows_c]
+        want_c = [c.clone() for c in cols_c]
+        kv_write.write_step_reference(want_r, rows, pos, want_c, cols)
+        write()
+        torch.cuda.synchronize()
+        diff = max([diff] + [float((a.float() - w.float()).abs().max())
+                             for a, w in zip(rows_c + cols_c,
+                                             want_r + want_c)])
+        rows = [r + 1 for r in rows]
+        cols = [c + 1 for c in cols]
     if diff != 0:
         raise RuntimeError(f"kv_write is not exact: max diff {diff}")
     ids, pl = torch.arange(b, device="cuda"), pos.long()
@@ -852,9 +877,16 @@ def check_kv_write(bandwidth, layers=4):
             c[ids, :, pl] = s
 
     moved = 2 * sum(r.numel() * r.element_size() for r in rows + cols) + 4 * b
+    def step():
+        writer(rows, pos, cols)
+
     return {"name": "kv_write", "tensors": len(rows_c) + len(cols_c),
             "B": b, "max_abs_err": diff, "max_rel_err": diff, "tol": 0.0,
-            "ms": median_ms(lambda: kv_write.write_step(
+            "ms": median_ms(step), "device_ms": device_ms(step, None),
+            "host_us": host_us(step),
+            "write_step_ms": median_ms(lambda: kv_write.write_step(
+                rows_c, rows, pos, col_caches=cols_c, cols=cols)),
+            "write_step_host_us": host_us(lambda: kv_write.write_step(
                 rows_c, rows, pos, col_caches=cols_c, cols=cols)),
             "plain_ms": median_ms(lambda: kv_write.write_step_reference(
                 rows_c, rows, pos, cols_c, cols)),
@@ -943,6 +975,7 @@ def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed):
     tokens = sum(len(toks) for toks in out.values())
     return {"requests": n_requests, "prompt_len": prompt_len,
             "new_tokens": new_tokens, "tokens": tokens,
+            "tokens_sha1": tokens_sha1(out),
             "prefill_s": t1 - t0, "decode_steps": eng.stats["steps"],
             "decode_s": t2 - t1,
             "ms_per_decode_step": 1e3 * (t2 - t1) / eng.stats["steps"],
@@ -950,15 +983,22 @@ def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed):
             "spec_retries": eng.stats["spec_retries"]}
 
 
+def tokens_sha1(generated):
+    """SHA-1 of an engine's generated tokens ({uid: tokens}), in uid order:
+    equal digests are the same greedy tokens."""
+    toks = [np.asarray(generated[u], np.int64) for u in sorted(generated)]
+    return hashlib.sha1(np.concatenate(toks).tobytes()).hexdigest()
+
+
 # the CUDA symbols of each ported kernel on the LM paths: the kernel each
 # launch runs once (K7's two kernels, prefill_attn_kernel and
-# prefill_attn_kernel_tc, share the stem), then K2's and K4's combine of a
-# split call
+# prefill_attn_kernel_tc, share the stem), then K2's and K4's combine and
+# K6's merge of a split call
 SYMBOLS = {"grouped_gemm_quant": ("gmm_quant_kernel",),
            "fused_ffn_quant": ("fused_ffn_kernel", "fused_ffn_combine"),
            "fused_swiglu_quant": ("fused_swiglu_kernel",
                                   "fused_swiglu_combine"),
-           "decode_attn": ("decode_attn_kernel",),
+           "decode_attn": ("decode_attn_kernel", "decode_attn_merge"),
            "prefill_attn": ("prefill_attn_kernel",),
            "kv_write": ("kv_write_kernel",)}
 
@@ -1308,7 +1348,7 @@ def main():
             print(json.dumps(r), flush=True)
             checks[(r["name"], mode)] = r
         torch.cuda.empty_cache()
-    # K6 at 8 rows (16 blocks): the time one block needs for the window
+    # K6 at 8 rows: 16 (group, row) pairs, the window split the most
     print(json.dumps(check_decode_attn("int8", bandwidth, b=8)), flush=True)
     # K7's float32 kernel (CUDA cores) over the INT8 cache
     print(json.dumps(check_prefill_attn("int8", bandwidth,

@@ -55,13 +55,19 @@ def _cache(g, b, t, kvh, hd, mode, dtype, dev):
 MODES = ["float", "int8", "int4"]
 
 
+# splits of the 10-tile window: one slice; two, so pos 257 ends mid-slice
+# (and mid-tile); ten, so rows at pos 0, 31 and 32 leave most slices empty
+@pytest.mark.parametrize("split", [1, 2, 10])
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fresh", [False, True])
 @pytest.mark.parametrize("nh,kvh,hd", [(8, 2, 128), (4, 4, 64), (2, 1, 256),
-                                       (6, 2, 64)])       # 3 heads, padded to 4
+                                       (6, 2, 64),        # 3 heads, padded to 4
+                                       (6, 3, 64),        # INT4: a group
+                                       (16, 2, 128),      # straddles halves;
+                                       (8, 1, 256)])      # 8 heads a group
 def test_decode_attn_kernel_matches_twin(cuda, mode, dtype, fresh, nh, kvh,
-                                         hd):
+                                         hd, split):
     g = torch.Generator(device=cuda).manual_seed(hd + nh)
     b, t = 5, 320
     q = torch.randn(b, nh, hd, generator=g, device=cuda).to(dtype)
@@ -75,11 +81,48 @@ def test_decode_attn_kernel_matches_twin(cuda, mode, dtype, fresh, nh, kvh,
                   k_new_scale=None if kns is None else kns[..., 0].contiguous(),
                   v_new_scale=None if vns is None else vns[..., 0].contiguous())
     before = da.decode_attn.launches
-    got = da.decode_attn(q, k, v, pos, **kw)
+    got = da.decode_attn(q, k, v, pos, split=split, **kw)
+    again = da.decode_attn(q, k, v, pos, split=split, **kw)
     torch.cuda.synchronize()
-    assert da.decode_attn.launches == before + 1
+    assert da.decode_attn.launches == before + 2
+    assert da.decode_attn.last_split == split
+    assert torch.equal(got, again)                  # bitwise repeatable
     ref = da.decode_attn_reference(q, k, v, pos, **kw)
     assert got.dtype == dtype and _rel_err(got, ref) <= TOL[dtype]
+
+
+def test_decode_attn_plan_at_the_lm_shape(cuda):
+    """At the LM decode shape the plan splits the window (64 rows x 2 KV
+    groups do not fill the card) and the split result agrees with S = 1
+    and with the twin."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, nh, kvh, hd, t = 64, 8, 2, 128, 2048
+    q = torch.randn(b, nh, hd, generator=g, device=cuda).to(torch.bfloat16)
+    k, v, ks, vs = _cache(g, b, t, kvh, hd, "int8", torch.bfloat16, cuda)
+    pos = torch.randint(0, t, (b,), generator=g, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs, attn_len=t)
+    assert da.residency("int8", torch.bfloat16, kvh, hd, 4,
+                        cuda.index or 0) >= 1
+    assert da.split_for(b, kvh, t, hd, 4, "int8", torch.bfloat16,
+                        cuda.index or 0) > 1
+    got = da.decode_attn(q, k, v, pos, **kw)
+    assert da.decode_attn.last_split == da.split_for(
+        b, kvh, t, hd, 4, "int8", torch.bfloat16, cuda.index or 0)
+    one = da.decode_attn(q, k, v, pos, split=1, **kw)
+    ref = da.decode_attn_reference(q, k, v, pos, **kw)
+    assert _rel_err(got, ref) <= TOL[torch.bfloat16]
+    assert _rel_err(got, one) <= TOL[torch.bfloat16]
+
+
+def test_decode_attn_sass_has_no_convergence_instructions(cuda):
+    """Every K6 instance's shuffles run on a warp the compiler proved
+    converged: no WARPSYNC or ENDCOLLECTIVE in the SASS."""
+    build.load("decode_attn")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "decode_attn"))], capture_output=True, text=True, check=True).stdout
+    assert "decode_attn_kernel" in sass and "decode_attn_merge" in sass
+    assert "WARPSYNC" not in sass and "ENDCOLLECTIVE" not in sass
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -162,6 +205,21 @@ def test_decode_attn_rejects_mismatched_shapes(cuda):
         da.decode_attn(q, k, v, pos[:3], **kw)
     with pytest.raises(ValueError, match="fresh row scales"):
         da.decode_attn(q, k, v, pos, **{**kw, "v_new_scale": kns[:3, :, 0]})
+    # each check of the one pass raises its own message
+    strided = k.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="k: expected a contiguous"):
+        da.decode_attn(q, strided, v, pos, **kw)
+    with pytest.raises(ValueError, match="v_scale: expected a contiguous"):
+        da.decode_attn(q, k, v, pos, **{**kw, "v_scale": vs.cpu()})
+    with pytest.raises(ValueError, match="k_new: expected a contiguous"):
+        da.decode_attn(q, k, v, pos, **{**kw, "k_new": kw["k_new"].float()})
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        da.decode_attn(shifted, k, v, pos, **kw)
+    # pos may lie on the host or be int64: the wrapper converts it
+    want = da.decode_attn(q, k, v, pos, **kw)
+    assert torch.equal(da.decode_attn(q, k, v, pos.cpu(), **kw), want)
 
 
 def test_kv_write_kernel_is_exact(cuda):
@@ -186,6 +244,62 @@ def test_kv_write_kernel_is_exact(cuda):
     assert kv_write.write_step.launches == before + 1
     for got, want in zip(rows_c + cols_c, want_r + want_c):
         assert torch.equal(got, want)
+
+
+def _write_case(g, b, t, dev):
+    """Two layers' K, V int8 row caches, their f32 scale columns, fresh
+    rows and positions (two dropped: past the end and negative)."""
+    rows_c = [torch.randint(-100, 100, (b, t, 256), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(4)]
+    cols_c = [torch.randn(b, 2, t, generator=g, device=dev) for _ in range(4)]
+    rows = [torch.randint(-100, 100, (b, 256), generator=g, device=dev,
+                          dtype=torch.int8) for _ in range(4)]
+    cols = [torch.randn(b, 2, generator=g, device=dev) for _ in range(4)]
+    pos = torch.tensor([0, 5, 31, t - 1, t, -1], device=dev,
+                       dtype=torch.int32)
+    return rows_c, cols_c, rows, cols, pos
+
+
+def test_prepared_kv_writer_matches_twin(cuda):
+    """K8 through a prepared writer over two steps, exact against
+    write_step_reference; a cache set reallocated between steps is not the
+    writer's, and the model's flush prepares again for it."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, t = 6, 64
+    rows_c, cols_c, rows, cols, pos = _write_case(g, b, t, cuda)
+    want_r = [c.clone() for c in rows_c]
+    want_c = [c.clone() for c in cols_c]
+    writer = kv_write.prepare(rows_c, cols_c)
+    before = kv_write.write_step.launches
+    for step in range(2):
+        kv_write.write_step_reference(want_r, rows, pos, want_c, cols)
+        writer(rows, pos, cols)
+        pos = pos + 1
+        rows = [r + 1 for r in rows]
+    torch.cuda.synchronize()
+    assert kv_write.write_step.launches == before + 2
+    for got, want in zip(rows_c + cols_c, want_r + want_c):
+        assert torch.equal(got, want)
+    new_r, new_c, rows, cols, pos = _write_case(g, b, t, cuda)
+    assert writer.matches(rows_c, cols_c)
+    assert not writer.matches(new_r, new_c)
+    model = TransformerMoE(TransformerMoEConfig(
+        vocab_size=97, max_len=t, model_dim=256, num_heads=2,
+        num_kv_heads=2, num_layers=2, ffn_hidden=512, moe_every=0,
+        kv_bits=8), device=cuda)
+    for rc, cc in ((rows_c, cols_c), (new_r, new_c), (rows_c, cols_c)):
+        cache = [{"k": rc[2 * i], "v": rc[2 * i + 1], "k_s": cc[2 * i],
+                  "v_s": cc[2 * i + 1]} for i in range(2)]
+        pend = [{"rows": (rows[2 * i], rows[2 * i + 1]),
+                 "cols": (cols[2 * i], cols[2 * i + 1])} for i in range(2)]
+        want_r = [c.clone() for c in rc]
+        want_c = [c.clone() for c in cc]
+        kv_write.write_step_reference(want_r, rows, pos, want_c, cols)
+        model._flush_kv_writes(cache, pend, pos)
+        torch.cuda.synchronize()
+        assert model._kv_writer.matches(rc, cc)
+        for got, want in zip(rc + cc, want_r + want_c):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kv_bits", [0, 8, 4])

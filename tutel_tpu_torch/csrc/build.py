@@ -48,16 +48,16 @@ SIGNATURES = {
     # xq, sx, w, scales, counts, out; E, C, K, N, bits, dtype, device; stream
     "grouped_gemm_w8a8": ("grouped_gemm_w8a8_launch",
                           [_P] * 6 + [_I] * 7 + [_P]),
-    # descriptor table (host), n, pos, B, device, stream
-    "kv_write": ("kv_write_launch", [_P, _I, _P, _I, _I, _P]),
-    # q, k, v, ks, vs, pos, k_new, v_new, k_new_scale, v_new_scale, out;
-    # B, NH, KVH, HD, T, W, mode, dtype, device; stream
-    "decode_attn": ("decode_attn_launch", [_P] * 11 + [_I] * 9 + [_P]),
+    # one launch record (ops/kv_write.py, ops/decode_attn.py _RECORD)
+    "kv_write": ("kv_write_launch", [ctypes.c_char_p]),
+    "decode_attn": ("decode_attn_launch", [ctypes.c_char_p]),
     # q, k, v, ks, vs, out; B, TQ, NH, KVH, HD, T, W, start, mode, dtype,
     # device; stream
     "prefill_attn": ("prefill_attn_launch", [_P] * 6 + [_I] * 11 + [_P]),
 }
 SOURCES = tuple(SIGNATURES)
+# entry points a source has besides its launch: record, int* answer
+QUERIES = {"decode_attn": {"decode_attn_occupancy": [ctypes.c_char_p, _P]}}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -156,7 +156,8 @@ def load(name):
         if lib is None:
             build_all((name,))
             entry, argtypes = SIGNATURES[name]
-            lib = _loaded[name] = _open(library_path(name), {entry: argtypes})
+            lib = _loaded[name] = _open(library_path(name), {
+                entry: argtypes, **QUERIES.get(name, {})})
         return lib
 
 

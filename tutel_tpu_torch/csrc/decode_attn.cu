@@ -17,289 +17,674 @@
 // What bounds it on an H100: the K/V window's bytes. At 64 rows x 2048
 // positions x 2 groups x 128 dims, INT8, that is 67 MB plus 2 MB of scales
 // per call, 21 us at 3.35 TB/s; the arithmetic (4 dot products of 128 per
-// position and group) is far below the card's rate.
+// position and group) is far below the card's rate, but its issue is not:
+// 1,024 FMAs and 256 widened values per (position, group) are 48 warp
+// instructions at the least, 12 us at 1.98 GHz.
 //
-// Design (simple first): one block per (group g, batch row b), 8 warps.
-// Only positions t < pos[b] (+1) are read, so a short row costs little.
-// Each warp walks its own tiles of 32 positions and keeps its own online
-// softmax state per query head (m, z, acc over HD) in registers. In a tile,
-// lane l scores position tile + l against the group's query heads (q
-// staged in shared memory as floats), reading its whole K row with vector
-// loads; the warp then takes the tile's max and sum by shuffles, and
-// combines the tile's 32 V rows, each lane owning HD/32 dims. At the end
-// the 8 warp states merge through shared memory.
+// Design (flash-decoding). The grid is (group g, batch row b, slice s):
+// slice s of S covers a contiguous run of the window's 32-position tiles
+// (`slice_tiles`, mirrored by ops/decode_attn.py split_slices), and
+// ops/decode_attn.py split_plan picks S from B, KVH, the window and the SM
+// count: the most slices whose blocks fit one wave at the block's
+// residency, S = 1 where B * KVH blocks already fill the card. Row b
+// reads only its live positions (pos[b] is a device value): a block whose
+// slice starts past them writes a neutral partial (m = -1e30, z = 0,
+// acc = 0) and returns.
+// The fresh row is folded in once, by slice 0.
+//
+// A block has up to 4 warps (fewer where 4 warps' buffers do not fit in
+// shared memory). Warp w walks tiles w, w + nw, ... of its slice through
+// its own double-buffered cp.async pipeline: the tile's K and V rows of
+// group g (neighbouring lanes on neighbouring 16 bytes) and their scales
+// land in shared memory while the warp computes on the previous tile.
+// Within a warp, LP = HD / DL lanes share a position and each owns DL
+// dims (16, or 8 with 8 query heads a group), so q stays in registers and
+// a lane reads a staged row as one 16-byte chunk (DL INT8 values): the
+// warp covers 32 / LP positions an instruction, each lane LP positions a
+// tile, 8 at a time. A position's MQ partial dots are summed over its LP
+// lanes by a reduce-scatter (lane r keeps head rs_owner(r): 4 shuffles
+// for 4 heads over 8 lanes, not 12), so the softmax works on one
+// (position, head) a lane. The warp takes the max of its 8-position steps
+// by shuffles and keeps its online softmax state (running max and sums
+// per head, acc [MQ][DL] a lane over its positions); the weights, rounded
+// to q's type against the running max, reach the combine of the V rows by
+// shuffles from the lanes that own their heads. At the end the position
+// groups, then the warps,
+// merge their states. With S = 1 the
+// block writes out; else it writes float32 partials (acc
+// [B, KVH, S, mq, HD] unnormalised, m and z [B, KVH, S, mq]) to a
+// workspace the wrapper allocates, and decode_attn_merge, one block per
+// (g, b), merges them in slice order: no atomics, so a result is bitwise
+// repeatable. Both kernels launch from the one C entry.
+//
+// Quantized values become floats with a byte permute (and a mask for a
+// nibble) and one subtraction, 2^23 + u - (2^23 + bias), instead of an
+// int-to-float conversion, which issues at a quarter of the FMA rate.
 //
 // The shuffles must run where the compiler can prove the warp converged,
 // or it turns each into a slow warp-collective sequence: so the number of
 // query heads per group is a template parameter (rounded up to 1, 2, 4 or
-// 8, with zero heads as padding), every warp runs the same number of
-// tiles, and a tile's body has no branch. Measured on the H100 this made
-// the kernel 3x faster (PERF.md). One block per row and group still
-// leaves it at about a quarter of the memory rate; splitting the window over more
-// blocks is the next step. The TPU kernel's block-diagonal q packing (a
-// device for its matrix unit) and its window chunk ladder are not needed.
-// CUDA cores only; no tensor cores yet.
+// 8, with zero heads as padding), every warp of a block runs the same
+// number of tiles (a tile past the slice's live positions is zero-filled
+// and masked), and a tile's body has no branch. The TPU kernel's
+// block-diagonal q packing (a device for its matrix unit) and its window
+// chunk ladder are not needed. CUDA cores only; no tensor cores.
+
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
 
 #include "attn_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxMq = 8;        // query heads per KV group, at most
-constexpr int kRun = 16;         // K values per vector load in the score
+using attn::cp_async16;
+using attn::cp_async4;
+using attn::smem_u32;
 
-struct Args {
+constexpr int kWarps = 4;                // warps of a block, at most
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 32;                // positions of a warp's tile
+constexpr int kMaxMq = 8;                // query heads per KV group, at most
+constexpr int kMaxSplit = 256;           // slices of a window, at most
+constexpr size_t kSmemBlock = 232448;    // shared memory a block can use
+constexpr int kStages = 2;               // a warp's tiles in its pipeline
+
+// How a warp covers a tile: DL dims a lane, LP lanes a position, PPW
+// positions an instruction, NP = LP positions a lane.
+template <int DPL, int MQ> struct Lanes {
+  static constexpr int HD = 32 * DPL;
+  static constexpr int DL = MQ <= 4 ? 16 : 8;
+  static constexpr int LP = HD / DL;
+  static constexpr int PPW = 32 / LP;
+  static constexpr int NP = kTile / PPW;
+  static_assert(LP >= MQ && LP <= 32, "a position's lanes hold its heads");
+};
+
+// The launch record (ops/decode_attn.py _RECORD): every pointer, then
+// every int, in one struct the wrapper packs with struct.pack.
+struct Record {
   const void* q;                 // [B, NH, HD] of T
-  const char* k;                 // [B, Tc, row] stored
-  const char* v;
+  const void* k;                 // [B, Tc, row] stored
+  const void* v;
   const float* ks;               // [B, KVH, Tc] or null (float cache)
   const float* vs;
   const int* pos;                // [B]
-  const char* kn;                // [B, row] stored, or null (no fresh row)
-  const char* vn;
+  const void* kn;                // [B, row] stored, or null (no fresh row)
+  const void* vn;
   const float* kns;              // [B, KVH] or null
   const float* vns;
   void* out;                     // [B, NH, HD] of T
-  int NH, KVH, Tc, W;
+  float* ws;                     // split > 1: the partials (see the top)
+  void* stream;
+  int B, NH, KVH, HD, Tc, W, mode, dtype, split, device;
+};
+static_assert(offsetof(Record, q) == 0, "record layout");
+static_assert(offsetof(Record, out) == 80, "record layout");
+static_assert(offsetof(Record, ws) == 88, "record layout");
+static_assert(offsetof(Record, stream) == 96, "record layout");
+static_assert(offsetof(Record, B) == 104, "record layout");
+static_assert(offsetof(Record, split) == 136, "record layout");
+static_assert(offsetof(Record, device) == 140, "record layout");
+static_assert(sizeof(Record) == 144, "record layout");
+
+struct Args {
+  const void* q;
+  const char* k;
+  const char* v;
+  const float* ks;
+  const float* vs;
+  const int* pos;
+  const char* kn;
+  const char* vn;
+  const float* kns;
+  const float* vns;
+  void* out;
+  float* ws;
+  int B, NH, KVH, Tc, W, split, mq;
+  int row;                       // bytes a staged row holds (staged_row)
   float scale;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Tiles [t0, t1) of slice s of `split` over n tiles, dealt out evenly and
+// in order (ops/decode_attn.py split_slices).
+__host__ __device__ __forceinline__ void slice_tiles(int n, int split, int s,
+                                                     int& t0, int& t1) {
+  t0 = (int)((long long)s * n / split);
+  t1 = (int)((long long)(s + 1) * n / split);
 }
-__device__ __forceinline__ float warp_sum(float v) {
+
+// Bytes [lo, lo + nb) of a stored row hold group g's HD values. INT4
+// (split-half packing): a group lies in the low or the high nibbles of HD
+// bytes, except with one group (both nibbles of HD / 2 bytes) and the
+// middle group of an odd KVH > 1 (the whole packed row).
+template <typename T, int MODE>
+__host__ __device__ __forceinline__ void group_bytes(int g, int KVH, int HD,
+                                                     int& lo, int& nb) {
+  if constexpr (MODE != 2) {
+    lo = g * HD * attn::Storage<T, MODE>::kBytes;
+    nb = HD * attn::Storage<T, MODE>::kBytes;
+  } else {
+    const int half = KVH * HD / 2, c0 = g * HD;
+    if (c0 + HD <= half) { lo = c0; nb = HD; }
+    else if (c0 >= half) { lo = c0 - half; nb = HD; }
+    else { lo = 0; nb = half; }
+  }
+}
+
+// The largest group_bytes of a cache: the row stride of a staged tile
+// (mirrored by kernel_geometry in tests/test_torch_attn_split.py).
+template <typename T, int MODE>
+__host__ __forceinline__ int staged_row(int KVH, int HD) {
+  if constexpr (MODE == 2) return KVH % 2 == 0 ? HD : KVH * HD / 2;
+  return HD * attn::Storage<T, MODE>::kBytes;
+}
+
+// Shared memory of one warp: kStages stages of a K tile, a V tile and
+// both tiles' scales.
+__host__ __device__ __forceinline__ size_t stage_bytes(int row) {
+  return (size_t)kTile * 2 * row + 2 * kTile * sizeof(float);
+}
+
+// N values of a staged row starting at logical column c0 (of the cache's
+// D), as floats; the row holds the stored bytes [lo, lo + nb).
+template <typename T, int MODE, int N>
+__device__ __forceinline__ void load_staged(const char* row, int c0, int D,
+                                            int lo, float* out) {
+  constexpr int kBytes = N * attn::Storage<T, MODE>::kBytes;
+  uint32_t w[(kBytes + 3) / 4];
+  if constexpr (MODE == 2) {
+    const int half = D / 2;
+    const bool high = c0 >= half;
+    attn::load_words<kBytes>(row + (high ? c0 - half : c0) - lo, w);
 #pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+    for (int i = 0; i < N; ++i) {
+      // nibble u = value + 8 in the low 4 bits of byte i % 4
+      const uint32_t x = (w[i / 4] ^ 0x88888888u) >> (high ? 4 : 0);
+      out[i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 | (i % 4)) &
+                               0x4B00000Fu) - 8388616.f;
+    }
+  } else if constexpr (MODE == 1) {
+    attn::load_words<kBytes>(row + c0 - lo, w);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const uint32_t x = w[i / 4] ^ 0x80808080u;     // byte u = value + 128
+      out[i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 | (i % 4))) -
+               8388736.f;
+    }
+  } else {
+    attn::load_run<T, 0, N>(row - lo, c0, D, out);
+  }
+}
+
+// Sums v[0..N) over the lanes whose index differs in bits O, O / 2, ...,
+// 1 (a position's lanes): while N > 1 a lane keeps half of its values and
+// adds its partner's other half, then the lanes butterfly. Returns the
+// sum of value rs_owner<O, N>(lane) (the others are spent).
+template <int O, int N>
+__device__ __forceinline__ float rs_sum(float* v, int lane) {
+  if constexpr (O == 0) {
+    return v[0];
+  } else if constexpr (N == 1) {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+    return rs_sum<O / 2, 1>(v, lane);
+  } else {
+    const bool up = lane & O;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = up ? v[i] : v[i + N / 2];
+      const float keep = up ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    return rs_sum<O / 2, N / 2>(v, lane);
+  }
+}
+template <int O, int N>
+__host__ __device__ constexpr int rs_owner(int r) {
+  if constexpr (O == 0 || N == 1) return 0;
+  else return ((r & O) ? N / 2 : 0) + rs_owner<O / 2, N / 2>(r);
+}
+// the first of a position's lanes that keeps head m
+template <int LP, int MQ>
+__host__ __device__ constexpr int rs_lane(int m) {
+  int r = 0;
+  while (rs_owner<LP / 2, MQ>(r) != m) ++r;
+  return r;
 }
 
 template <typename T, int MODE, int DPL, int MQ>
 __global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const Args a, int mq) {
-  constexpr int HD = 32 * DPL;
+decode_attn_kernel(const Args a) {
+  using L = Lanes<DPL, MQ>;
+  constexpr int HD = L::HD, DL = L::DL, LP = L::LP, PPW = L::PPW,
+                NP = L::NP, NPS = NP < 8 ? NP : 8;
   constexpr bool kQuant = MODE != 0;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                  // [MQ][HD]
-  float* wm = qs + MQ * HD;                          // [warps][MQ]
-  float* wz = wm + kWarps * MQ;                      // [warps][MQ]
-  float* wacc = wz + kWarps * MQ;                    // [warps][MQ][HD]
+  extern __shared__ __align__(16) char smem[];
 
-  const int g = blockIdx.x, b = blockIdx.y;
+  const int g = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  const int nw = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane % LP, pg = lane / LP;        // dims, position group
+  const int my_m = rs_owner<LP / 2, MQ>(sub);       // the head this lane keeps
+  const int base = lane - sub;                      // the group's first lane
   const int D = a.KVH * HD;
   const size_t rb = attn::row_bytes<T, MODE>(D);
-  const bool fresh = a.kn != nullptr;
+  const bool fresh = a.kn != nullptr && s == 0;
   const int p = a.pos[b];
-  const int n_live = max(0, min(fresh ? p : p + 1, a.W));
-  const T* q = static_cast<const T*>(a.q);
+  const int n_live = max(0, min(a.kn != nullptr ? p : p + 1, a.W));
+  int t0, t1;
+  slice_tiles((a.W + kTile - 1) / kTile, a.split, s, t0, t1);
+  const int end = min(n_live, t1 * kTile);           // positions < end
+  const int count = max(0, (end + kTile - 1) / kTile - t0);
+  const size_t pair = (size_t)b * a.KVH + g;
+  const int mq = a.mq;
 
-  // the group's query heads m < mq; heads mq <= m < MQ are zero padding
-  for (int i = threadIdx.x; i < MQ * HD; i += kThreads) {
-    const int m = i / HD, d = i % HD;
-    qs[i] = m < mq ? attn::to_float(q[((size_t)b * a.NH + m * a.KVH + g) * HD + d])
-                   : 0.f;
+  if (count == 0 && !fresh && a.split > 1) {       // a neutral partial
+    float* acc = a.ws + (pair * a.split + s) * mq * HD;
+    for (int i = threadIdx.x; i < mq * HD; i += blockDim.x) acc[i] = 0.f;
+    const size_t parts = (size_t)a.B * a.KVH * a.split * mq;
+    float* pm = a.ws + parts * HD + (pair * a.split + s) * mq;
+    for (int m = threadIdx.x; m < mq; m += blockDim.x) {
+      pm[m] = attn::kMaskedScore;
+      pm[parts + m] = 0.f;
+    }
+    return;
   }
-  __syncthreads();
 
-  float mrun[MQ], z[MQ], acc[MQ][DPL];
+  // this warp's buffers: two stages of {K [kTile][row], V [kTile][row],
+  // K scales, V scales}
+  int lo, nb;
+  group_bytes<T, MODE>(g, a.KVH, HD, lo, nb);
+  // a compile-time stride but for INT4, whose staged row depends on KVH
+  const int row = MODE == 2 ? a.row : HD * attn::Storage<T, MODE>::kBytes;
+  const size_t stage = stage_bytes(row);
+  char* wbuf = smem + warp * kStages * stage;
+  const char* kb = a.k + (size_t)b * a.Tc * rb + lo;
+  const char* vb = a.v + (size_t)b * a.Tc * rb + lo;
+  const float* ksb = kQuant ? a.ks + pair * a.Tc : nullptr;
+  const float* vsb = kQuant ? a.vs + pair * a.Tc : nullptr;
+  const int cpr = nb / 16;                            // 16-byte chunks a row
+  const uint32_t cpr_inv = 0xffffffffu / cpr + 1;     // c / cpr = umulhi
+
+  // copy this warp's i-th tile into stage st; positions past `end`
+  // (and a tile past the slice) are zero-filled, reading nothing
+  auto issue = [&](int i, int st) {
+    const int tile = (t0 + i * nw + warp) * kTile;
+    char* kd = wbuf + st * stage;
+    char* vd = kd + kTile * row;
+    for (int c = lane; c < kTile * cpr; c += 32) {
+      const int r = MODE == 2 ? (int)__umulhi(c, cpr_inv) : c / cpr;
+      const int ch = c - r * cpr;
+      const bool ok = tile + r < end;
+      const size_t off = (size_t)(ok ? tile + r : 0) * rb + ch * 16;
+      cp_async16(smem_u32(kd + r * row + ch * 16), kb + off, ok);
+      cp_async16(smem_u32(vd + r * row + ch * 16), vb + off, ok);
+    }
+    if constexpr (kQuant) {
+      float* sd = reinterpret_cast<float*>(vd + kTile * row);
+      const bool ok = tile + lane < end;
+      cp_async4(smem_u32(sd + lane), ksb + (ok ? tile + lane : 0), ok);
+      cp_async4(smem_u32(sd + kTile + lane), vsb + (ok ? tile + lane : 0), ok);
+    }
+    attn::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i)   // in flight while q and the fresh
+    issue(i, i);                          // row load
+
+  // this lane's dims of the group's query heads (m >= mq: zero padding)
+  const T* q = static_cast<const T*>(a.q);
+  const int c_lane = g * HD + sub * DL;               // this lane's dims
+  float qv[MQ][DL];
 #pragma unroll
   for (int m = 0; m < MQ; ++m) {
-    mrun[m] = attn::kMaskedScore;
-    z[m] = 0.f;
+    if (m < mq) {
+      attn::load_run<T, 0, DL>(reinterpret_cast<const char*>(
+          q + ((size_t)b * a.NH + m * a.KVH + g) * HD), sub * DL, HD, qv[m]);
+    } else {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[m][i] = 0.f;
+      for (int i = 0; i < DL; ++i) qv[m][i] = 0.f;
+    }
   }
-  const int c_lane = g * HD + lane * DPL;             // this lane's V dims
+
+  // online softmax state: the running max and sum of head my_m (a lane's
+  // sum covers its positions), acc over this lane's dims and positions
+  float mrun = attn::kMaskedScore, z = 0.f, acc[MQ][DL];
+#pragma unroll
+  for (int m = 0; m < MQ; ++m)
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[m][i] = 0.f;
   if (fresh) {             // every warp scores it; warp 0 keeps it
-    float kv[DPL], vv[DPL];
-    attn::load_run<T, MODE, DPL>(a.kn + b * rb, c_lane, D, kv);
-    attn::load_run<T, MODE, DPL>(a.vn + b * rb, c_lane, D, vv);
+    float kv[DL], vv[DL], part[MQ];
+    attn::load_run<T, MODE, DL>(a.kn + b * rb, c_lane, D, kv);
+    attn::load_run<T, MODE, DL>(a.vn + b * rb, c_lane, D, vv);
     const float ksn = kQuant ? a.kns[b * a.KVH + g] : 1.f;
     const float vsn = kQuant ? a.vns[b * a.KVH + g] : 1.f;
 #pragma unroll
     for (int m = 0; m < MQ; ++m) {
-      float s = 0.f;
+      part[m] = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) s = fmaf(qs[m * HD + lane * DPL + i], kv[i], s);
-      s = warp_sum(s) * a.scale;
-      if (kQuant) s *= ksn;
-      if (warp == 0) {
-        mrun[m] = s;
-        z[m] = 1.f;
+      for (int i = 0; i < DL; ++i) part[m] = fmaf(qv[m][i], kv[i], part[m]);
+    }
+    float sn = rs_sum<LP / 2, MQ>(part, lane) * a.scale;
+    if (kQuant) sn *= ksn;
+    if (warp == 0) {
+      mrun = sn;
+      z = pg == 0 ? 1.f : 0.f;          // the groups' sums add up at the end
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[m][i] = vsn * vv[i];
-      }
+      for (int m = 0; m < MQ; ++m)
+#pragma unroll
+        for (int i = 0; i < DL; ++i) acc[m][i] = pg == 0 ? vsn * vv[i] : 0.f;
     }
   }
 
-  const char* kb = a.k + (size_t)b * a.Tc * rb;
-  const char* vb = a.v + (size_t)b * a.Tc * rb;
-  const float* ksb = kQuant ? a.ks + ((size_t)b * a.KVH + g) * a.Tc : nullptr;
-  const float* vsb = kQuant ? a.vs + ((size_t)b * a.KVH + g) * a.Tc : nullptr;
+  const int n_iter = (count + nw - 1) / nw;           // the same for every warp
+  for (int it = 0; it < n_iter; ++it) {
+    issue(it + kStages - 1, (it + kStages - 1) % kStages);
+    attn::cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const char* kt = wbuf + (it % kStages) * stage;
+    const char* vt = kt + kTile * row;
+    const float* sc = reinterpret_cast<const float*>(vt + kTile * row);
+    const int tile = (t0 + it * nw + warp) * kTile;
 
-  // Every warp runs the same number of tiles and a tile's body has no
-  // branch: a lane past the live window reads the last live row and is
-  // masked (its softmax weight is 0). So the compiler sees every shuffle on
-  // a converged warp, and a tile's loads are issued together.
-  const int n_tiles = (n_live + kWarps * 32 - 1) / (kWarps * 32);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int tile = (it * kWarps + warp) * 32;
-    const int t = tile + lane;
-    const bool live = t < n_live;
-    const int row = min(t, n_live - 1);
-    float s[MQ];
+    // NPS positions a lane at a time (a bounded unrolled body): scores of
+    // position j * PPW + pg of the tile for head my_m, the online softmax
+    // step, the combine
+#pragma unroll 1
+    for (int h = 0; h < NP; h += NPS) {
+      float sj[NPS];
 #pragma unroll
-    for (int m = 0; m < MQ; ++m) s[m] = 0.f;
-    const char* krow = kb + (size_t)row * rb;
+      for (int j = 0; j < NPS; ++j) {
+        const int r = (h + j) * PPW + pg;
+        float kv[DL], part[MQ];
+        load_staged<T, MODE, DL>(kt + r * row, c_lane, D, lo, kv);
 #pragma unroll
-    for (int c = 0; c < HD; c += kRun) {
-      float kv[kRun];
-      attn::load_run<T, MODE, kRun>(krow, g * HD + c, D, kv);
+        for (int m = 0; m < MQ; ++m) {
+          part[m] = 0.f;
+#pragma unroll
+          for (int i = 0; i < DL; ++i) part[m] = fmaf(qv[m][i], kv[i], part[m]);
+        }
+        float x = rs_sum<LP / 2, MQ>(part, lane) * a.scale;
+        if (kQuant) x *= sc[r];
+        sj[j] = tile + r < end ? x : attn::kMaskedScore;
+      }
+      float mx = sj[0];
+#pragma unroll
+      for (int j = 1; j < NPS; ++j) mx = fmaxf(mx, sj[j]);
+#pragma unroll
+      for (int o = LP; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(mrun, mx);
+      const float corr = expf(mrun - m_new);
+      mrun = m_new;
+      float zt = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPS; ++j) {       // sj becomes the rounded weight
+        const int r = (h + j) * PPW + pg;
+        const float e = tile + r < end ? expf(sj[j] - m_new) : 0.f;
+        zt += e;
+        sj[j] = attn::round_to<T>(kQuant ? e * sc[kTile + r] : e);
+      }
+      z = z * corr + zt;
 #pragma unroll
       for (int m = 0; m < MQ; ++m) {
-        const float4* q4 = reinterpret_cast<const float4*>(qs + m * HD + c);
+        const float cm = __shfl_sync(0xffffffffu, corr,
+                                     base + rs_lane<LP, MQ>(m));
 #pragma unroll
-        for (int j = 0; j < kRun / 4; ++j) {
-          const float4 qq = q4[j];
-          s[m] = fmaf(qq.x, kv[4 * j], s[m]);
-          s[m] = fmaf(qq.y, kv[4 * j + 1], s[m]);
-          s[m] = fmaf(qq.z, kv[4 * j + 2], s[m]);
-          s[m] = fmaf(qq.w, kv[4 * j + 3], s[m]);
+        for (int i = 0; i < DL; ++i) acc[m][i] *= cm;
+      }
+#pragma unroll
+      for (int j = 0; j < NPS; ++j) {
+        float vv[DL];
+        load_staged<T, MODE, DL>(vt + ((h + j) * PPW + pg) * row, c_lane, D,
+                                 lo, vv);
+#pragma unroll
+        for (int m = 0; m < MQ; ++m) {
+          const float e = __shfl_sync(0xffffffffu, sj[j],
+                                      base + rs_lane<LP, MQ>(m));
+#pragma unroll
+          for (int i = 0; i < DL; ++i) acc[m][i] = fmaf(e, vv[i], acc[m][i]);
         }
       }
     }
-    const float ksc = kQuant ? ksb[row] : 1.f;
-    const float vsc = kQuant ? vsb[row] : 1.f;
-    float ev[MQ];
-#pragma unroll
-    for (int m = 0; m < MQ; ++m) {
-      float sm = s[m] * a.scale;
-      if (kQuant) sm *= ksc;
-      sm = live ? sm : attn::kMaskedScore;
-      const float m_new = fmaxf(mrun[m], warp_max(sm));
-      const float corr = expf(mrun[m] - m_new);
-      const float e = live ? expf(sm - m_new) : 0.f;
-      z[m] = z[m] * corr + warp_sum(e);
-      mrun[m] = m_new;
-      ev[m] = attn::round_to<T>(kQuant ? e * vsc : e);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[m][i] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      float vv[DPL];
-      attn::load_run<T, MODE, DPL>(
-          vb + (size_t)min(tile + j, n_live - 1) * rb, c_lane, D, vv);
-#pragma unroll
-      for (int m = 0; m < MQ; ++m) {
-        const float e = __shfl_sync(0xffffffffu, ev[m], j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[m][i] = fmaf(e, vv[i], acc[m][i]);
-      }
-    }
+    __syncwarp();
   }
+  attn::cp_async_wait<0>();       // the last (empty) stage's zero fill
+  __syncthreads();                // the stages become the merge area
 
+  // the position groups' sums, then the warps' states through shared memory
 #pragma unroll
-  for (int m = 0; m < MQ; ++m) {
-    if (lane == 0) {
-      wm[warp * MQ + m] = mrun[m];
-      wz[warp * MQ + m] = z[m];
+  for (int o = LP; o < 32; o <<= 1) {
+    z += __shfl_xor_sync(0xffffffffu, z, o);
+#pragma unroll
+    for (int m = 0; m < MQ; ++m)
+#pragma unroll
+      for (int i = 0; i < DL; ++i)
+        acc[m][i] += __shfl_xor_sync(0xffffffffu, acc[m][i], o);
+  }
+  float* wm = reinterpret_cast<float*>(smem);        // [nw][MQ]
+  float* wz = wm + nw * MQ;                          // [nw][MQ]
+  float* wacc = wz + nw * MQ;                        // [nw][MQ][HD]
+  if (lane < LP) {
+    if (sub == rs_lane<LP, MQ>(my_m)) {
+      wm[warp * MQ + my_m] = mrun;
+      wz[warp * MQ + my_m] = z;
     }
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      wacc[(warp * MQ + m) * HD + lane * DPL + i] = acc[m][i];
+    for (int m = 0; m < MQ; ++m)
+#pragma unroll
+      for (int i = 0; i < DL; ++i)
+        wacc[(warp * MQ + m) * HD + sub * DL + i] = acc[m][i];
   }
   __syncthreads();
 
-  T* out = static_cast<T*>(a.out);
-  for (int i = threadIdx.x; i < mq * HD; i += kThreads) {
-    const int m = i / HD, d = i % HD;
+  // each warp's weight exp(m_w - max) and the sum z, once per head
+  float* wf = wacc + nw * MQ * HD;                   // [nw][MQ]
+  float* wmax = wf + nw * MQ;                        // [MQ]
+  float* wzt = wmax + MQ;                            // [MQ]
+  if (threadIdx.x < mq) {
+    const int m = threadIdx.x;
     float mx = attn::kMaskedScore;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * MQ + m]);
-    float zt = 0.f, at = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < nw; ++w) mx = fmaxf(mx, wm[w * MQ + m]);
+    float zt = 0.f;
+    for (int w = 0; w < nw; ++w) {
       const float f = expf(wm[w * MQ + m] - mx);
+      wf[w * MQ + m] = f;
       zt = fmaf(wz[w * MQ + m], f, zt);
-      at = fmaf(wacc[(w * MQ + m) * HD + d], f, at);
     }
-    out[((size_t)b * a.NH + m * a.KVH + g) * HD + d] =
-        attn::from_float<T>(at / fmaxf(zt, 1e-30f));
+    wmax[m] = mx;
+    wzt[m] = zt;
+  }
+  __syncthreads();
+
+  const size_t parts = (size_t)a.B * a.KVH * a.split * mq;
+  for (int i = threadIdx.x; i < mq * HD; i += blockDim.x) {
+    const int m = i / HD, d = i % HD;
+    float at = 0.f;
+    for (int w = 0; w < nw; ++w)
+      at = fmaf(wacc[(w * MQ + m) * HD + d], wf[w * MQ + m], at);
+    if (a.split == 1) {
+      static_cast<T*>(a.out)[((size_t)b * a.NH + m * a.KVH + g) * HD + d] =
+          attn::from_float<T>(at / fmaxf(wzt[m], 1e-30f));
+    } else {
+      const size_t part = (pair * a.split + s) * mq + m;
+      a.ws[part * HD + d] = at;
+      if (d == 0) {
+        a.ws[parts * HD + part] = wmax[m];
+        a.ws[parts * HD + parts + part] = wzt[m];
+      }
+    }
   }
 }
 
-template <typename T, int MODE, int DPL, int MQ>
-cudaError_t launch(const Args& a, int B, int mq, cudaStream_t stream) {
+// The S partials of every (g, b), merged in slice order. The slices' m
+// and z land in shared memory first (one load each, all at once); their
+// weights exp(m_s - max) and the sum z come next, once per head; then
+// thread d sums dims d, d + blockDim.x, ... of every head over the
+// slices, loads independent of each other.
+template <typename T, int DPL, int MQ>
+__global__ void __launch_bounds__(kThreads)
+decode_attn_merge(const float* __restrict__ ws, T* __restrict__ out, int B,
+                  int NH, int KVH, int split, int mq) {
   constexpr int HD = 32 * DPL;
-  const size_t smem = sizeof(float) * (size_t)MQ * (HD + 2 * kWarps + kWarps * HD);
-  auto kernel = decode_attn_kernel<T, MODE, DPL, MQ>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  __shared__ float wf[kMaxSplit * MQ];       // [split][MQ]: m, then weights
+  __shared__ float zs[kMaxSplit * MQ];       // [split][MQ]
+  __shared__ float wz[MQ];
+  const int g = blockIdx.x, b = blockIdx.y;
+  const size_t pair = (size_t)b * KVH + g;
+  const size_t parts = (size_t)B * KVH * split * mq;
+  const float* acc = ws + pair * split * mq * HD;
+  const float* pm = ws + parts * HD + pair * split * mq;
+  for (int i = threadIdx.x; i < split * mq; i += blockDim.x) {
+    wf[i / mq * MQ + i % mq] = pm[i];
+    zs[i / mq * MQ + i % mq] = pm[parts + i];
   }
-  kernel<<<dim3(a.KVH, B), kThreads, smem, stream>>>(a, mq);
+  __syncthreads();
+  if (threadIdx.x < mq) {
+    const int m = threadIdx.x;
+    float mx = attn::kMaskedScore;
+    for (int s = 0; s < split; ++s) mx = fmaxf(mx, wf[s * MQ + m]);
+    float zt = 0.f;
+    for (int s = 0; s < split; ++s) {
+      const float f = expf(wf[s * MQ + m] - mx);
+      wf[s * MQ + m] = f;
+      zt = fmaf(zs[s * MQ + m], f, zt);
+    }
+    wz[m] = fmaxf(zt, 1e-30f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < MQ; ++m) {
+    if (m >= mq) break;
+    for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+      float at = 0.f;
+#pragma unroll 8
+      for (int s = 0; s < split; ++s)
+        at = fmaf(acc[((size_t)s * mq + m) * HD + d], wf[s * MQ + m], at);
+      out[((size_t)b * NH + m * KVH + g) * HD + d] =
+          attn::from_float<T>(at / wz[m]);
+    }
+  }
+}
+
+// Warps of a block and its dynamic shared memory: the warps' buffers or,
+// after the loop, the merge of their states in the same bytes (mirrored
+// by kernel_geometry in tests/test_torch_attn_split.py).
+inline void block_shape(int row, int HD, int MQ, int& warps, size_t& smem) {
+  warps = (int)std::min<size_t>(kWarps,
+                                kSmemBlock / (kStages * stage_bytes(row)));
+  const size_t merge = sizeof(float) * (warps * MQ * (HD + 3) + 2 * MQ);
+  smem = std::max(warps * kStages * stage_bytes(row), merge);
+}
+
+// Launch the instance on `stream`, or with `blocks` set, write how many of
+// its blocks an SM holds at once instead (the split plan's residency).
+template <typename T, int MODE, int DPL, int MQ>
+cudaError_t launch(const Record& r, cudaStream_t stream, int* blocks) {
+  constexpr int HD = 32 * DPL;
+  const int row = staged_row<T, MODE>(r.KVH, HD);
+  int warps;
+  size_t smem;
+  block_shape(row, HD, MQ, warps, smem);
+  if (warps < 1) return cudaErrorInvalidValue;
+  auto kernel = decode_attn_kernel<T, MODE, DPL, MQ>;
+  // the attributes are set once per device: the most dynamic shared
+  // memory, and the SM's whole carveout as shared memory
+  static bool wide[64] = {};
+  if (smem > 48 * 1024 && !(r.device < 64 && wide[r.device])) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBlock);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (r.device < 64) wide[r.device] = true;
+  }
+  if (blocks)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                         32 * warps, smem);
+  const Args a{r.q, static_cast<const char*>(r.k), static_cast<const char*>(r.v),
+               r.ks, r.vs, r.pos, static_cast<const char*>(r.kn),
+               static_cast<const char*>(r.vn), r.kns, r.vns, r.out, r.ws,
+               r.B, r.NH, r.KVH, r.Tc, r.W, r.split, r.NH / r.KVH, row,
+               (float)(1.0 / sqrt((double)HD))};
+  kernel<<<dim3(r.KVH, r.B, r.split), 32 * warps, smem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || r.split == 1) return err;
+  decode_attn_merge<T, DPL, MQ><<<dim3(r.KVH, r.B), kThreads, 0, stream>>>(
+      r.ws, static_cast<T*>(r.out), r.B, r.NH, r.KVH, r.split, r.NH / r.KVH);
   return cudaGetLastError();
 }
 
 // the group's query heads, rounded up to a power of two (MQ)
 template <typename T, int MODE, int DPL>
-cudaError_t launch_mq(const Args& a, int B, int mq, cudaStream_t s) {
-  if (mq <= 1) return launch<T, MODE, DPL, 1>(a, B, mq, s);
-  if (mq <= 2) return launch<T, MODE, DPL, 2>(a, B, mq, s);
-  if (mq <= 4) return launch<T, MODE, DPL, 4>(a, B, mq, s);
-  return launch<T, MODE, DPL, 8>(a, B, mq, s);
+cudaError_t launch_mq(const Record& r, cudaStream_t s, int* blocks) {
+  const int mq = r.NH / r.KVH;
+  if (mq <= 1) return launch<T, MODE, DPL, 1>(r, s, blocks);
+  if (mq <= 2) return launch<T, MODE, DPL, 2>(r, s, blocks);
+  if (mq <= 4) return launch<T, MODE, DPL, 4>(r, s, blocks);
+  return launch<T, MODE, DPL, 8>(r, s, blocks);
 }
 
 template <typename T, int MODE>
-cudaError_t launch_hd(const Args& a, int B, int HD, int mq, cudaStream_t s) {
-  switch (HD) {
-    case 64: return launch_mq<T, MODE, 2>(a, B, mq, s);
-    case 128: return launch_mq<T, MODE, 4>(a, B, mq, s);
-    case 256: return launch_mq<T, MODE, 8>(a, B, mq, s);
+cudaError_t launch_hd(const Record& r, cudaStream_t s, int* blocks) {
+  switch (r.HD) {
+    case 64: return launch_mq<T, MODE, 2>(r, s, blocks);
+    case 128: return launch_mq<T, MODE, 4>(r, s, blocks);
+    case 256: return launch_mq<T, MODE, 8>(r, s, blocks);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_mode(const Args& a, int B, int HD, int mq, int mode,
-                        cudaStream_t s) {
-  switch (mode) {
-    case 0: return launch_hd<T, 0>(a, B, HD, mq, s);
-    case 1: return launch_hd<T, 1>(a, B, HD, mq, s);
-    case 2: return launch_hd<T, 2>(a, B, HD, mq, s);
+cudaError_t launch_mode(const Record& r, cudaStream_t s, int* blocks) {
+  switch (r.mode) {
+    case 0: return launch_hd<T, 0>(r, s, blocks);
+    case 1: return launch_hd<T, 1>(r, s, blocks);
+    case 2: return launch_hd<T, 2>(r, s, blocks);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Validate a record, switch to its device only when it must, run, switch
+// back.
+int run(const char* record, int* blocks) {
+  const Record* r = reinterpret_cast<const Record*>(record);
+  const int n_tiles = (r->W + kTile - 1) / kTile;
+  if (r->KVH <= 0 || r->NH % r->KVH || r->NH / r->KVH > kMaxMq ||
+      r->W > r->Tc || r->B <= 0 || r->split < 1 || r->split > kMaxSplit ||
+      r->split > std::max(n_tiles, 1) || (r->split > 1 && !r->ws && !blocks))
+    return (int)cudaErrorInvalidValue;
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err != cudaSuccess) return (int)err;
+  if (caller != r->device && (err = cudaSetDevice(r->device)) != cudaSuccess)
+    return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(r->stream);
+  err = r->dtype == 1 ? launch_mode<__nv_bfloat16>(*r, s, blocks)
+                      : launch_mode<float>(*r, s, blocks);
+  if (caller != r->device) cudaSetDevice(caller);
+  return (int)err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// mode: 0 = float cache (of q's type), 1 = int8, 2 = int4 split-half;
-// dtype: 0 = float32, 1 = bfloat16; HD in {64, 128, 256}; NH / KVH <= 8.
+// One launch record (Record; ops/decode_attn.py packs it). mode: 0 =
+// float cache (of q's type), 1 = int8, 2 = int4 split-half; dtype: 0 =
+// float32, 1 = bfloat16; HD in {64, 128, 256}; NH / KVH <= 8; split >= 1
+// slices of the window's tiles (ws holds the partials when split > 1).
 // kn == null runs without a fresh row (then vn, kns, vns are ignored).
 // Returns a cudaError_t.
-int decode_attn_launch(const void* q, const void* k, const void* v,
-                       const float* ks, const float* vs, const int* pos,
-                       const void* kn, const void* vn, const float* kns,
-                       const float* vns, void* out, int B, int NH, int KVH,
-                       int HD, int Tc, int W, int mode, int dtype, int device,
-                       void* stream) {
-  if (KVH <= 0 || NH % KVH || NH / KVH > kMaxMq || W > Tc || B <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  Args a{q, static_cast<const char*>(k), static_cast<const char*>(v), ks, vs,
-         pos, static_cast<const char*>(kn), static_cast<const char*>(vn), kns,
-         vns, out, NH, KVH, Tc, W, (float)(1.0 / sqrt((double)HD))};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = dtype == 1
-            ? launch_mode<__nv_bfloat16>(a, B, HD, NH / KVH, mode, s)
-            : launch_mode<float>(a, B, HD, NH / KVH, mode, s);
-  return (int)err;
+int decode_attn_launch(const char* record) { return run(record, nullptr); }
+
+// The blocks an SM holds at once of the kernel instance and block shape a
+// record selects (its pointers are not read), into *blocks.
+int decode_attn_occupancy(const char* record, int* blocks) {
+  return run(record, blocks);
 }
 
 const char* tt_error_string(int err) {

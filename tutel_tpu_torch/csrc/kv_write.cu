@@ -19,8 +19,13 @@
 // block (b, i) copies tensor i's fresh row b. A row copy moves 16-byte
 // words when the row width and both addresses allow it, else bytes; a
 // column copy writes H strided elements.
+//
+// The launch record (ops/kv_write.py): a Head, the n caches' CacheDescs
+// (packed once per set of caches by the prepared writer), then the n
+// fresh tensors' addresses (packed every step).
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -40,6 +45,23 @@ struct Desc {
 struct Table {
   Desc d[kMaxTensors];
 };
+
+struct Head {                   // ops/kv_write.py _HEAD
+  void* stream;
+  const int* pos;               // device int32 [B]
+  int n, B, device, pad;
+};
+struct CacheDesc {              // ops/kv_write.py _CACHE
+  char* cache;
+  int kind, itemsize, t, width;
+};
+static_assert(offsetof(Head, pos) == 8, "record layout");
+static_assert(offsetof(Head, n) == 16, "record layout");
+static_assert(offsetof(Head, device) == 24, "record layout");
+static_assert(sizeof(Head) == 32, "record layout");
+static_assert(offsetof(CacheDesc, kind) == 8, "record layout");
+static_assert(offsetof(CacheDesc, width) == 20, "record layout");
+static_assert(sizeof(CacheDesc) == 24, "record layout");
 
 __device__ __forceinline__ void copy_elem(char* dst, const char* src,
                                           int itemsize) {
@@ -83,31 +105,35 @@ kv_write_kernel(const Table table, const int* __restrict__ pos) {
 
 extern "C" {
 
-// desc: host array of n x 6 int64 (cache pointer, source pointer, kind,
-// itemsize, T, width), n <= 64; pos: device int32 [B]. Returns a
-// cudaError_t (cudaErrorInvalidValue for a table it does not take).
-int kv_write_launch(const int64_t* desc, int n, const int* pos, int B,
-                    int device, void* stream) {
-  if (n <= 0 || n > kMaxTensors || B <= 0) return (int)cudaErrorInvalidValue;
+// record: a Head, then n CacheDescs, then n source addresses (each [B,
+// width] on the device), n <= 64. Switches to the record's device only
+// when it must, and back. Returns a cudaError_t (cudaErrorInvalidValue
+// for a table it does not take).
+int kv_write_launch(const char* record) {
+  const Head* h = reinterpret_cast<const Head*>(record);
+  const int n = h->n;
+  if (n <= 0 || n > kMaxTensors || h->B <= 0)
+    return (int)cudaErrorInvalidValue;
+  const CacheDesc* c = reinterpret_cast<const CacheDesc*>(record + sizeof(Head));
+  const char* const* src =
+      reinterpret_cast<const char* const*>(record + sizeof(Head) + n * sizeof(CacheDesc));
   Table table;
   for (int i = 0; i < n; ++i) {
-    const int64_t* r = desc + 6 * i;
-    table.d[i].cache = reinterpret_cast<char*>(r[0]);
-    table.d[i].src = reinterpret_cast<const char*>(r[1]);
-    table.d[i].kind = (int)r[2];
-    table.d[i].itemsize = (int)r[3];
-    table.d[i].t = (int)r[4];
-    table.d[i].width = (int)r[5];
-    const int is = table.d[i].itemsize;
-    if ((is != 1 && is != 2 && is != 4) || (r[2] != 0 && r[2] != 1))
+    const int is = c[i].itemsize;
+    if ((is != 1 && is != 2 && is != 4) || (c[i].kind != 0 && c[i].kind != 1))
       return (int)cudaErrorInvalidValue;
+    table.d[i] = Desc{c[i].cache, src[i], c[i].kind, is, c[i].t, c[i].width};
   }
-  cudaError_t err = cudaSetDevice(device);
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, n);
-  kv_write_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, pos);
-  return (int)cudaGetLastError();
+  if (caller != h->device && (err = cudaSetDevice(h->device)) != cudaSuccess)
+    return (int)err;
+  kv_write_kernel<<<dim3(h->B, n), kThreads, 0,
+                    static_cast<cudaStream_t>(h->stream)>>>(table, h->pos);
+  err = cudaGetLastError();
+  if (caller != h->device) cudaSetDevice(caller);
+  return (int)err;
 }
 
 const char* tt_error_string(int err) {

@@ -316,33 +316,17 @@ template <int MODE, int HD> constexpr size_t smem_bytes() {
          (MODE == 0 ? 0 : 2 * (2 * raw + scales));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using attn::cp_async16;
+using attn::cp_async4;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
+using attn::smem_u32;
 
 // byte offset of 16-byte chunk c of row r in a [rows][HD] bf16 tile; the
 // chunks of a row are XOR-swizzled by r % 8, so the 8 rows one ldmatrix
 // phase reads fall in 8 different bank groups
 template <int HD> __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * (HD * 2) + ((c ^ (r & 7)) << 4);
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled unless `full`
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {

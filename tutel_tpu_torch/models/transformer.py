@@ -12,7 +12,8 @@ an MoE layer (`impls.moe_layer.MOELayer`, one device).
 The decode step has one structure on every device: each block's attention
 runs kernel K6 (`ops.decode_attn.decode_attn`) with the token's fresh K/V
 row injected, and the step's cache writes for all blocks go out at the
-end in one launch of kernel K8 (`ops.kv_write.write_step`). The prefill
+end in one launch of kernel K8 (`ops.kv_write.write_step`, through a
+writer prepared once per cache, `ops.kv_write.prepare`). The prefill
 runs kernel K7 (`ops.decode_attn.prefill_attn`) per block and prompt
 chunk. On CPU tensors those functions run their plain twins; on CUDA
 tensors they launch the kernels or raise. The cache is updated in place.
@@ -34,7 +35,7 @@ import torch
 from ..impls.moe_layer import MOELayer
 from ..ops.activations import gelu
 from ..ops.decode_attn import decode_attn, prefill_attn, unpack_int4
-from ..ops.kv_write import write_step
+from ..ops import kv_write
 from ..utils import matmul_f32, resolve_device
 
 
@@ -86,6 +87,7 @@ class TransformerMoE:
                              **(config.expert_kwargs or {})},
                     model_dim=config.model_dim, dtype=config.dtype,
                     device=self.device)
+        self._kv_writer = None      # K8 prepared for the last cache written
 
     # ------------------------------------------------------------------
 
@@ -309,7 +311,9 @@ class TransformerMoE:
 
     def _flush_kv_writes(self, cache, pendings, pos):
         """Every block's deferred cache write in one K8 launch: 2L row
-        caches and, for a quantized cache, 2L scale columns."""
+        caches and, for a quantized cache, 2L scale columns, through the
+        writer prepared for this cache (prepared again when the cache is
+        another)."""
         row_caches, rows, col_caches, cols = [], [], [], []
         for lc, pend in zip(cache, pendings):
             row_caches += [lc["k"], lc["v"]]
@@ -317,7 +321,11 @@ class TransformerMoE:
             if pend["cols"] is not None:
                 col_caches += [lc["k_s"], lc["v_s"]]
                 cols += list(pend["cols"])
-        write_step(row_caches, rows, pos, col_caches=col_caches, cols=cols)
+        writer = self._kv_writer
+        if writer is None or not writer.matches(row_caches, col_caches):
+            writer = self._kv_writer = kv_write.prepare(row_caches,
+                                                        col_caches)
+        writer(rows, pos, cols)
         return cache
 
     def apply_decode(self, params, tokens, cache, pos,
@@ -339,13 +347,14 @@ class TransformerMoE:
         x = (params["embed"][tokens]
              + params["pos"][pos.long().clamp(0, cfg.max_len - 1)]
              ).to(cfg.dtype)
+        pos32 = pos.to(torch.int32)      # K6's and K8's positions, once a step
         l_aux_sum = torch.zeros((), device=self.device)
         ov = dict(moe_overrides or {})
         needed_max = torch.zeros((), dtype=torch.long, device=self.device)
         pendings = []
         for i, block in enumerate(params["blocks"]):
             a, pend = self._attn_step(block, self._ln(block["ln1"], x),
-                                      cache[i], pos, attn_len=attn_len)
+                                      cache[i], pos32, attn_len=attn_len)
             pendings.append(pend)
             x = x + a
             h = self._ln(block["ln2"], x)
@@ -360,7 +369,7 @@ class TransformerMoE:
                 l_aux_sum = l_aux_sum + l_aux.float()
             else:
                 x = x + self._ffn(block["ffn"], h)
-        self._flush_kv_writes(cache, pendings, pos)
+        self._flush_kv_writes(cache, pendings, pos32)
         logits = self._logits(params, self._ln(params["final_ln"], x))
         if capacity_probe:
             return logits, cache, l_aux_sum, needed_max
