@@ -12,7 +12,9 @@ In order, it
      them K7's source once more with -Xptxas -v (registers, spills and
      shared memory of each template instance), and counts the
      tensor-core instructions (HMMA, HGMMA) in K7's library with
-     cuobjdump -sass, failing if there are none;
+     cuobjdump -sass, failing if there are none; and for K1 (HMMA) and K3
+     (IMMA) the same count per kernel instance and the instructions a lane
+     issues per weight byte in each weight loop (gemm_tc_sass);
   3. holds each expert kernel against its plain PyTorch twin on the card
      in bfloat16, and times kernel, twin and a bf16 torch.bmm yardstick
      over the dequantized weights with CUDA events: K1 grouped_gemm_quant
@@ -20,8 +22,12 @@ In order, it
      2048 x 2048, INT4, capacity 32, the row counts of 512 routed tokens),
      at the same width with every row live, at a K < H shape, and at the
      LM server's expert shapes (a decode step and a prefill chunk of
-     capacity 8192); K5 grouped_gemm_w8a8 (fc1 as one GEMM) and K3
-     fused_ffn_w8a8 at the decode shape in INT4 and INT8, with every row
+     capacity 8192), K1 with the row tile and groups its plan picks from
+     the routed rows, its profiled device ms, host microseconds and share
+     of the bound, and two calls bitwise equal; K5 grouped_gemm_w8a8 (fc1
+     as one GEMM, with the same timings as K1) and K3 fused_ffn_w8a8 (held
+     to max abs error 0 against its twin, two calls bitwise equal, with its
+     row tile) at the decode shape in INT4 and INT8, with every row
      live, and at K < H in INT8 with gelu; K4 fused_swiglu_quant at the
      SwiGLU LM's expert shapes (32 experts, 1024 x 2048 x 1024, INT4, silu;
      a decode step and a prefill chunk of 16,384 routed rows); K2 and K4
@@ -50,7 +56,10 @@ In order, it
      launch only K3 and whose two-call run only K5; then 128 requests on
      the two-call path with squared ReLU lifted by jit.pallas_kernel as
      the experts' activation (K1, K10, K1 each step, and nothing else);
-     each run counts every kernel's launches;
+     each run counts every kernel's launches; between them one decode
+     chunk of the two-call and of the W4A8 fused server at 256 slots under
+     torch.profiler (moe_profile: device busy ms per step and busy share,
+     K1's or K3's device ms per step and share, the top kernels);
   6. checks small engines on the card against the same engines on the CPU
      (INT4 weight-only within 1e-4, also two-call with the lifted squared
      ReLU; W4A8 within 2e-3);
@@ -192,12 +201,15 @@ def device_ms(fn, symbol, reps=REPS):
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
                  if str(e.device_type).endswith("CUDA")
                  and (symbol is None or symbol in e.name)]
-        if spans:
+        # every call launches the same kernels, so a whole trace holds a
+        # multiple of `reps` of them
+        if spans and (symbol is not None or len(spans) % reps == 0):
             return sum(spans) / 1e3 / (reps if symbol is None else len(spans))
         # a trace now and then holds no kernel (two in a row have been
-        # seen on an H100): try again
+        # seen on an H100), or loses some: try again
         print(json.dumps({"profiler_retry": symbol or "every kernel",
-                          "reason": "the trace held no such kernel"}),
+                          "reason": f"the trace held {len(spans)} such "
+                                    f"kernels for {reps} calls"}),
               flush=True)
     raise RuntimeError(f"the profiler saw no launch of {symbol}")
 
@@ -269,6 +281,56 @@ def sass_counts(name="prefill_attn", opcodes=("HMMA", "HGMMA")):
                       for op in opcodes}, "per_kernel": counts}
 
 
+def mma_sass(name, stem, op):
+    """The SASS of each `stem` kernel instance of csrc/<name>.cu's built
+    library (cuobjdump -sass): its count of the tensor-core opcode `op`
+    (HMMA, IMMA), and its weight loops, the innermost loops (a branch back
+    to an earlier address with no smaller loop inside) that hold `op` and
+    a load through the read-only path: their instructions, the bytes those
+    loads bring a lane per pass, and the instructions per weight byte.
+    Raises unless every instance has `op`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        head = part.split(None, 1)[0]
+        if stem not in head:
+            continue
+        code = [(int(m.group(1), 16), m.group(3), m.group(4)) for m in
+                re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                            r"([A-Z][A-Z0-9_.]*)([^;]*);", part)]
+        loops = []
+        for addr, opc, args in code:
+            t = re.search(r"0x([0-9a-f]+)", args)
+            if opc.startswith("BRA") and t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+        found = []
+        for lo, hi in loops:
+            if any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                   for a, b in loops):
+                continue
+            body = [opc for a, opc, _ in code if lo <= a <= hi]
+            loads = [o for o in body if o.startswith("LDG") and "CONSTANT" in o]
+            if not loads or not any(o.startswith(op) for o in body):
+                continue
+            nbytes = sum(16 if ".128" in o else 8 if ".64" in o else 4
+                         for o in loads)
+            found.append({"instructions": len(body), "load_bytes": nbytes,
+                          "per_weight_byte": len(body) / nbytes,
+                          op: sum(o.startswith(op) for o in body)})
+        dtype = ("bf16, " if "bfloat16" in head
+                 else "f32, " if re.search(r"IfL", head) else "")
+        args = ", ".join(re.findall(r"Li(\d+)E", head))
+        out[f"{stem}<{dtype}{args}>"] = {
+            op: sum(o.startswith(op) for _, o, _ in code),
+            "weight_loops": found}
+    if not out or any(not v[op] for v in out.values()):
+        raise RuntimeError(f"{name}: an instance of {stem} has no {op}")
+    return out
+
+
 def errors(got, ref, counts):
     """(max abs error, max abs error / max |ref|) over rows < counts."""
     live = (torch.arange(ref.shape[1], device=ref.device)[None, :, None]
@@ -297,6 +359,25 @@ def split_of(x, stream, routed):
     return {"split": split, "tile_rows": rows}
 
 
+K1_DESIGN = ("tensor cores: mma.sync m16n8k16 bf16, the weights as M, "
+             "INT4 widened in registers, 4 warps split K, x staged a chunk "
+             "at a time")
+K3_DESIGN = ("tensor cores: mma.sync m16n8k32 s8, the weights as M, one "
+             "block per (expert, row tile), register double buffer")
+
+
+def timed_gemm(record, kernel, plain, bmm, bounds):
+    """A grouped GEMM's check with its timings: event ms, device ms (every
+    kernel of the call), host microseconds (200 calls without a
+    synchronize), its share of the bound on the device, and the plain twin
+    and the bf16 torch.bmm yardstick."""
+    dev = device_ms(kernel, None)
+    return {**record, "ms": median_ms(kernel), "device_ms": dev,
+            "host_us": host_us(kernel, calls=200),
+            "plain_ms": median_ms(plain), "bf16_bmm_ms": median_ms(bmm),
+            **bounds, "bound_share": bounds["bound_ms"] / dev}
+
+
 def check_kernels(shape, bandwidth):
     """Both kernels against their twins at one shape; returns two dicts."""
     name, e, c, k, h, n, rows, bias, act = shape
@@ -314,24 +395,28 @@ def check_kernels(shape, bandwidth):
     act_fn = getattr(activations, act)
     out = []
 
-    # K1 on fc1: x [E, C, K] @ W1 [K, H]
-    got = gq.grouped_gemm_quant(x, w1, counts)
+    # K1 on fc1: x [E, C, K] @ W1 [K, H], told the routed rows as the MoE
+    # layer tells it (they pick the row tile)
+    def k1():
+        return gq.grouped_gemm_quant(x, w1, counts, routed=live_rows)
+    got, again = k1(), k1()
     ref = gq.grouped_gemm_quant_reference(x, w1, counts)
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref, counts)
+    if not torch.equal(got, again):
+        raise RuntimeError(f"two K1 calls at {name} differ")
     w1_dense = quant.dequantize(w1, torch.bfloat16)
     moved = (live_experts * (w1.values[0].numel() + 4 * h)
              + live_rows * k * 2 + e * c * h * 2 + 4 * e)
     ops = 2 * live_rows * k * h
-    out.append({
-        "name": "grouped_gemm_quant", "shape": name,
-        "E": e, "C": c, "K": k, "N": h, "live_rows": live_rows,
-        "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": BF16_TOL,
-        "ms": median_ms(lambda: gq.grouped_gemm_quant(x, w1, counts)),
-        "plain_ms": median_ms(
-            lambda: gq.grouped_gemm_quant_reference(x, w1, counts)),
-        "bf16_bmm_ms": median_ms(lambda: torch.bmm(x, w1_dense)),
-        **bound(moved, ops, bandwidth)})
+    out.append(timed_gemm(
+        {"name": "grouped_gemm_quant", "shape": name,
+         "E": e, "C": c, "K": k, "N": h, "live_rows": live_rows,
+         "plan": gq.tc_plan(e, c, live_rows), "design": K1_DESIGN,
+         "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": BF16_TOL,
+         "bitwise_repeat": True},
+        k1, lambda: gq.grouped_gemm_quant_reference(x, w1, counts),
+        lambda: torch.bmm(x, w1_dense), bound(moved, ops, bandwidth)))
     del w1_dense
 
     # K2: act(x @ W1 + b1) @ W2 + b2, told the routed rows as the MoE
@@ -403,37 +488,46 @@ def check_w8a8_kernels(shape, bandwidth):
     w1_dense = quant.dequantize(w1, torch.bfloat16)
     moved = (live_experts * (k * h * bits // 8 + 4 * h) + live_rows * k * 2
              + e * c * h * 2 + 4 * e)
-    out.append({
-        "name": "grouped_gemm_w8a8", **base, "N": h,
-        "max_abs_err": abs_err, "max_rel_err": rel_err,
-        "ms": median_ms(lambda: w8a8.grouped_gemm_w8a8(x, w1, counts)),
-        "plain_ms": median_ms(
-            lambda: w8a8.grouped_gemm_w8a8_reference(x, w1, counts)),
-        "bf16_bmm_ms": median_ms(lambda: torch.bmm(x, w1_dense)),
-        **bound(moved, 2 * live_rows * k * h, bandwidth, INT8_PEAK)})
+    out.append(timed_gemm(
+        {"name": "grouped_gemm_w8a8", **base, "N": h,
+         "max_abs_err": abs_err, "max_rel_err": rel_err},
+        lambda: w8a8.grouped_gemm_w8a8(x, w1, counts),
+        lambda: w8a8.grouped_gemm_w8a8_reference(x, w1, counts),
+        lambda: torch.bmm(x, w1_dense),
+        bound(moved, 2 * live_rows * k * h, bandwidth, INT8_PEAK)))
 
     def k3():
         return fused_ffn.fused_ffn_w8a8(x, stream, counts,
-                                        activation_fn=act_fn)
-    got = k3()
+                                        activation_fn=act_fn,
+                                        routed=live_rows)
+    got, again = k3(), k3()
     ref = fused_ffn.fused_ffn_w8a8_reference(x, stream, counts, act_fn)
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref, counts)
+    # the integer sums are exact and the rescales the twin's: bit for bit
+    if abs_err != 0 or not torch.equal(got, again):
+        raise RuntimeError(f"K3 at {name}: max |kernel - twin| {abs_err} "
+                           f"(must be 0), or two calls differ")
     w2_dense = quant.dequantize(w2, torch.bfloat16)
     weights = (k * h + h * n) * bits // 8 + 8 * (h + n)  # values, scale, bias
     moved = (live_experts * weights + live_rows * k * 2 + e * c * n * 2
              + 4 * e)
+    dev = device_ms(k3, None)
+    bounds = bound(moved, 2 * live_rows * (k * h + h * n), bandwidth,
+                   INT8_PEAK)
     out.append({
         "name": "fused_ffn_w8a8", **base, "H": h, "N": n,
         "activation": act, "bias": bias,
+        "tile_rows": fused_ffn.tile_rows_w8a8(h, e, c, live_rows),
+        "design": K3_DESIGN,
         "max_abs_err": abs_err, "max_rel_err": rel_err,
-        "ms": median_ms(k3), "device_ms": device_ms(k3, None),
+        "bitwise_repeat": True,
+        "ms": median_ms(k3), "device_ms": dev,
         "plain_ms": median_ms(lambda: fused_ffn.fused_ffn_w8a8_reference(
             x, stream, counts, act_fn)),
         "bf16_bmm_ms": median_ms(lambda: torch.bmm(
             act_fn(torch.bmm(x, w1_dense)), w2_dense)),
-        **bound(moved, 2 * live_rows * (k * h + h * n), bandwidth,
-                INT8_PEAK)})
+        **bounds, "bound_share": bounds["bound_ms"] / dev})
     for r in out:
         if not r["max_rel_err"] <= BF16_TOL:
             raise RuntimeError(f"{r['name']} at {name} disagrees with its "
@@ -617,6 +711,26 @@ def jit_graph(f, kernel):
             "inject_kernel_max_rel_err": k9, "pallas_kernel_max_rel_err": k10,
             "replay_ms": median_ms(graph.replay),
             "eager_ms": median_ms(lambda: (f(x, s), kernel(h)))}
+
+
+def decode_layer(activation_bits, activation_fn=None):        # None: relu
+    """The decode server's MoE layer (benchmarks/bench_dropless_decode.py):
+    128 experts x 2048 x 2048, top-2, dropless, bfloat16; W4A8 with
+    activation_bits=8."""
+    return moe.moe_layer(
+        gate_type={"type": "top", "k": 2, "capacity_factor": 0.0},
+        model_dim=2048, dtype=torch.bfloat16, device="cuda",
+        experts={"type": "ffn", "num_experts_per_device": 128,
+                 "hidden_size_per_expert": 2048, "has_fc1_bias": False,
+                 "has_fc2_bias": False, "activation_bits": activation_bits,
+                 "activation_fn": activation_fn})
+
+
+def decode_params(layer):
+    """Random weights from SEED, the experts' quantized INT4."""
+    params = layer.init(torch.Generator(device="cuda").manual_seed(SEED))
+    params["experts"] = quant.quantize_expert_params(params["experts"], 4)
+    return params
 
 
 def serve(layer, params, n_requests, steps, auto_fuse, seed):
@@ -995,6 +1109,8 @@ def tokens_sha1(generated):
 # prefill_attn_kernel_tc, share the stem), then K2's and K4's combine and
 # K6's merge of a split call
 SYMBOLS = {"grouped_gemm_quant": ("gmm_quant_kernel",),
+           "fused_ffn_w8a8": ("fused_w8a8_kernel",),
+           "grouped_gemm_w8a8": ("gmm_w8a8_kernel",),
            "fused_ffn_quant": ("fused_ffn_kernel", "fused_ffn_combine"),
            "fused_swiglu_quant": ("fused_swiglu_kernel",
                                   "fused_swiglu_combine"),
@@ -1058,6 +1174,57 @@ def lm_profile(model, params, seed, steps=16):
             "top_kernels_ms_per_step": [[n[:70], t / 1e3 / steps]
                                         for n, t in top],
             "ported_kernels_ms_per_step": ported}
+
+
+def moe_profile(layer, params, auto_fuse, kernel, seed, steps=8):
+    """One decode chunk of the MoE server at a full batch (256 slots,
+    residual_norm, 512 routed rows a step) under torch.profiler, after a
+    chunk of warm-up: the device's busy ms per step and busy share of the
+    chunk's span, the expert kernel's launches and device ms per step, and
+    the kernels with the most device time. The profiler slows the host, so
+    the busy share is a lower bound for an unprofiled chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    states = torch.randn(256, layer.model_dim, generator=g,
+                         device="cuda").to(layer.dtype)
+    eng = MoeDecodeEngine(layer, params, max_batch=256, auto_fuse=auto_fuse,
+                          state_update="residual_norm")
+    for i in range(256):
+        eng.try_add(Request(uid=i, state=states[i], remaining=3 * steps))
+    eng.step_chunk(steps)
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step_chunk(steps)
+        torch.cuda.synchronize()
+    counts = read_launches(f"moe_profile {kernel}", {kernel})
+    by_name, n_by_name, busy, span, events = device_time(prof)
+    ms = sum(t for n, t in by_name.items()
+             if of_kernel(n, SYMBOLS[kernel])) / 1e3
+    seen = sum(c for n, c in n_by_name.items() if SYMBOLS[kernel][0] in n)
+    if seen != counts[kernel]:
+        raise RuntimeError(f"the profiler saw {seen} launches of {kernel}, "
+                           f"its wrapper counted {counts[kernel]}")
+    return {"steps": steps, "kernel": kernel, "launches": counts[kernel],
+            "device_events": events, "device_busy_ms_per_step":
+            busy / 1e3 / steps, "span_ms": span / 1e3,
+            "busy_share": busy / span,
+            f"{kernel}_ms_per_step": ms / steps,
+            f"{kernel}_share": ms / (busy / 1e3),
+            "top_kernels_ms_per_step": [[n[:70], t / 1e3 / steps] for n, t in
+                                        sorted(by_name.items(),
+                                               key=lambda kv: -kv[1])[:6]]}
+
+
+def moe_profiles(layer, layer_w4a8, params, smi):
+    """`moe_profile` of the two-call path (K1 twice a step) and the W4A8
+    fused path (K3 once a step), one JSON line each."""
+    for lay, auto_fuse, kernel in ((layer, False, "grouped_gemm_quant"),
+                                   (layer_w4a8, True, "fused_ffn_w8a8")):
+        print(json.dumps({"phase": "moe_profile", "auto_fuse": auto_fuse,
+                          **moe_profile(lay, params, auto_fuse, kernel,
+                                        SEED + 9), "card": smi}), flush=True)
 
 
 def lm_prefill_profile(model, params, seed, ffn_kernel):
@@ -1187,6 +1354,10 @@ def main():
                       "kernels": ptxas_report(ptxas)}), flush=True)
     print(json.dumps({"phase": "prefill_attn_sass",
                       **sass_counts("prefill_attn")}), flush=True)
+    print(json.dumps({"phase": "gemm_tc_sass", "grouped_gemm_quant": mma_sass(
+        "grouped_gemm_quant", "gmm_quant_kernel_tc", "HMMA"),
+        "fused_ffn_w8a8": mma_sass("fused_ffn_w8a8", "fused_w8a8_kernel",
+                                   "IMMA")}), flush=True)
 
     # the decode server's shape: capacity 32 (the speculated buffer at 256
     # active tokens), row counts of 512 top-2 routings over 128 experts
@@ -1271,21 +1442,8 @@ def main():
     del x
     torch.cuda.empty_cache()
 
-    gate = {"type": "top", "k": 2, "capacity_factor": 0.0}
-
-    def decode_layer(activation_bits, activation_fn=None):    # None: relu
-        return moe.moe_layer(
-            gate_type=gate, model_dim=2048, dtype=torch.bfloat16,
-            device="cuda",
-            experts={"type": "ffn", "num_experts_per_device": 128,
-                     "hidden_size_per_expert": 2048, "has_fc1_bias": False,
-                     "has_fc2_bias": False,
-                     "activation_bits": activation_bits,
-                     "activation_fn": activation_fn})
-
     layer, layer_w4a8 = decode_layer(0), decode_layer(8)
-    params = layer.init(torch.Generator(device="cuda").manual_seed(SEED))
-    params["experts"] = quant.quantize_expert_params(params["experts"], 4)
+    params = decode_params(layer)
     torch.cuda.empty_cache()
     for lay in (layer, layer_w4a8):                            # warm-up
         serve(lay, params, 16, (2, 2), True, SEED + 7)
@@ -1306,6 +1464,10 @@ def main():
             "tokens_per_s": eng.stats["tokens"] / seconds,
             "launches": counts, "card": smi}), flush=True)
         launches[runs] = counts[runs]
+
+    # the device time of a step on the paths of K1 (two-call) and K3 (W4A8
+    # fused)
+    moe_profiles(layer, layer_w4a8, params, smi)
 
     # the two-call path with squared ReLU lifted by jit.pallas_kernel: each
     # step K1, K10, K1 (the fused kernels take activation codes only)

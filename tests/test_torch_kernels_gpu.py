@@ -7,11 +7,16 @@ kernel has no CPU mode). This file imports no JAX; on a machine without
 JAX run it as `python -m pytest --noconftest tests/test_torch_kernels_gpu.py`.
 """
 
+import re
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 from tutel_tpu_torch import moe
+from tutel_tpu_torch.csrc import build
 from tutel_tpu_torch.ops import activations, fused_ffn, grouped_gemm_quant
 from tutel_tpu_torch.ops import quant
 from tutel_tpu_torch.serving import MoeDecodeEngine, Request
@@ -61,6 +66,84 @@ def test_grouped_gemm_quant_kernel_matches_twin(cuda, dtype, bits, blocks):
     dead = (torch.arange(c, device=cuda)[None, :, None]
             >= counts[:, None, None])
     assert not torch.any(torch.where(dead, got.float(), 0.0))
+
+
+# the tensor-core body's shapes (bits, blocks, K, N): N past a 128-column
+# strip (16-byte loads) or past a 32-column one (N % 16 != 0: 4-byte
+# loads); x staged with 16-byte loads or one value at a time (INT4 blocks
+# of 132 packed rows, INT8 K % 16 != 0); an INT8 k-step half past K
+TC_SHAPES = [(4, 1, 256, 656), (4, 2, 320, 656), (4, 1, 264, 200),
+             (8, 1, 256, 200), (8, 1, 200, 656)]
+# live rows 0, 1, 7, 8, 9, 16, 17 and C: one and two n-blocks, two tiles
+TC_COUNTS = [0, 1, 7, 8, 9, 16, 17, 20]
+
+
+# routed rows: 0 plans 8-row tiles in one group, None (every row live) 16-row
+# tiles in two groups (`tc_plan`)
+@pytest.mark.parametrize("routed", [0, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,blocks,k,n", TC_SHAPES)
+def test_grouped_gemm_quant_bodies_match_twin(cuda, dtype, bits, blocks, k, n,
+                                              routed):
+    """bfloat16 x runs the tensor-core body with either plan, float32 x
+    the CUDA-core body (which takes no tile), against the twin; rows past
+    the counts are zeros; two calls are bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(bits + blocks + k)
+    e, c = len(TC_COUNTS), TC_COUNTS[-1]
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(dtype)
+    w = torch.randn(e, k, n, generator=g, device=cuda) * 0.05
+    qw = quant.quantize(w, bits, shard_blocks=blocks)
+    counts = torch.tensor(TC_COUNTS, dtype=torch.int32, device=cuda)
+    before = grouped_gemm_quant.grouped_gemm_quant.launches
+    got = grouped_gemm_quant.grouped_gemm_quant(x, qw, counts, routed=routed)
+    again = grouped_gemm_quant.grouped_gemm_quant(x, qw, counts,
+                                                  routed=routed)
+    torch.cuda.synchronize()
+    assert grouped_gemm_quant.grouped_gemm_quant.launches == before + 2
+    ref = grouped_gemm_quant.grouped_gemm_quant_reference(x, qw, counts)
+    assert got.dtype == dtype and _rel_err(got, ref, counts) <= TOL[dtype]
+    assert torch.equal(got, again)
+    dead = (torch.arange(c, device=cuda)[None, :, None]
+            >= counts[:, None, None])
+    assert not torch.any(torch.where(dead, got.float(), 0.0))
+
+
+@pytest.mark.parametrize("k", [8192, 14336])
+@pytest.mark.parametrize("bits,blocks", [(4, 1), (4, 2), (8, 1)])
+def test_grouped_gemm_quant_wide_k_in_16_row_tiles(cuda, bits, blocks, k):
+    """fc2 of a wide hidden (K = 8192, 14336) in bfloat16 with every row
+    live: 16-row tiles whose x is staged a chunk at a time, against the
+    twin; two calls bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(bits + k)
+    counts_list = [0, 9, 17, 32]
+    e, c, n = len(counts_list), 32, 256
+    assert grouped_gemm_quant.tc_plan(e, c)[0] == 16
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(e, k, n, generator=g, device=cuda) * 0.02
+    qw = quant.quantize(w, bits, shard_blocks=blocks)
+    counts = torch.tensor(counts_list, dtype=torch.int32, device=cuda)
+    got = grouped_gemm_quant.grouped_gemm_quant(x, qw, counts)
+    again = grouped_gemm_quant.grouped_gemm_quant(x, qw, counts)
+    ref = grouped_gemm_quant.grouped_gemm_quant_reference(x, qw, counts)
+    assert _rel_err(got, ref, counts) <= TOL[torch.bfloat16]
+    assert torch.equal(got, again)
+
+
+def test_k1_and_k3_libraries_run_on_tensor_cores(cuda):
+    """Every instance of K1's tensor-core kernel holds HMMA (bf16 mma.sync)
+    and every K3 kernel IMMA (int8 mma.sync), read from the SASS of the
+    built libraries with cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name, stem, op in (("grouped_gemm_quant", "gmm_quant_kernel_tc",
+                            "HMMA"),
+                           ("fused_ffn_w8a8", "fused_w8a8_kernel", "IMMA")):
+        build.load(name)
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        parts = [p for p in re.split(r"\n\s*Function : ", sass)[1:]
+                 if stem in p.split(None, 1)[0]]
+        assert parts and all(f"{op}." in p for p in parts), name
 
 
 @pytest.mark.parametrize("c", [20, 1100])

@@ -123,6 +123,81 @@ def test_fused_ffn_w8a8_kernel_matches_twin(cuda, dtype, bits, bias, act, k):
     assert _dead_rows_zero(got, counts)
 
 
+# live rows 0, 1, 7, 8, 9, 16, 17 and 20: one and two n-blocks of K3's
+# mmas in a 16-row block, and a second block
+TC_COUNTS = [0, 1, 7, 8, 9, 16, 17, 20]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,act,k,h,n,bw", [
+    (4, activations.relu, 256, 256, 192, 128),      # N past a strip
+    (8, activations.gelu, 128, 256, 192, 128),      # K < H
+    (4, activations.silu, 128, 256, 96, 8),         # 4-byte loads
+    (8, activations.relu, 256, 256, 160, 32),
+    (4, activations.relu, 2048, 2048, 2048, 2048),  # the MoE decode widths
+])
+def test_fused_ffn_w8a8_tensor_cores_equal_twin(cuda, dtype, bits, act, k, h,
+                                                n, bw):
+    """K3's int8 mmas against the twin: bit for bit with relu (the integer
+    sums are exact and the rescales the twin's); with gelu or silu the
+    kernel's tanhf or expf may move one int8 hidden value by one step
+    (5e-3 in float32, one bfloat16 step in bfloat16). Rows past the counts
+    are zeros; two calls are bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(bits * 7 + k + bw)
+    e, c = len(TC_COUNTS), TC_COUNTS[-1]
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(dtype)
+    w1 = torch.randn(e, k, h, generator=g, device=cuda) * 0.05
+    w2 = torch.randn(e, h, n, generator=g, device=cuda) * 0.05
+    b1 = torch.randn(e, h, generator=g, device=cuda) * 0.1
+    b2 = torch.randn(e, n, generator=g, device=cuda) * 0.1
+    st = fused_ffn.prepare_fused_ffn(quant.quantize(w1, bits),
+                                     quant.quantize(w2, bits), b1, b2, bw=bw)
+    counts = torch.tensor(TC_COUNTS, dtype=torch.int32, device=cuda)
+    got = fused_ffn.fused_ffn_w8a8(x, st, counts, activation_fn=act)
+    again = fused_ffn.fused_ffn_w8a8(x, st, counts, activation_fn=act)
+    torch.cuda.synchronize()
+    ref = fused_ffn.fused_ffn_w8a8_reference(x, st, counts, act)
+    if act is activations.relu:
+        assert torch.equal(got, ref)
+    else:
+        tol = BF16_TOL if dtype == torch.bfloat16 else 5e-3
+        assert _rel_err(got, ref, counts) <= tol
+    assert torch.equal(got, again) and _dead_rows_zero(got, counts)
+
+
+@pytest.mark.parametrize("routed", [0, None])
+@pytest.mark.parametrize("bits,k,h,n,bw", [
+    (4, 200, 2048, 200, 128),       # 16 tiles, a partial k-step
+    (8, 136, 512, 300, 256),        # a partial k-step, fc2 past n
+    (8, 256, 4096, 256, 2048),      # K < H, 8-row tiles
+    (4, 256, 7168, 128, 128),       # 4-row tiles over 56 tiles
+])
+def test_fused_ffn_w8a8_edges(cuda, bits, k, h, n, bw, routed):
+    """K3 at its edges against the twin, bit for bit (relu): many tiles,
+    k-steps past the phase's rows, fc2 columns past n, 4-row tiles at a
+    7168-wide hidden (the widest a prepared stream takes is 7,264); two
+    calls bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(bits + k + h)
+    e, c = 3, 20
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(torch.bfloat16)
+    w1 = torch.randn(e, k, h, generator=g, device=cuda) * 0.05
+    w2 = torch.randn(e, h, n, generator=g, device=cuda) * 0.05
+    b1 = torch.randn(e, h, generator=g, device=cuda) * 0.1
+    b2 = torch.randn(e, n, generator=g, device=cuda) * 0.1
+    st = fused_ffn.prepare_fused_ffn(quant.quantize(w1, bits),
+                                     quant.quantize(w2, bits), b1, b2, bw=bw)
+    counts = torch.tensor([0, 9, 20], dtype=torch.int32, device=cuda)
+    got = fused_ffn.fused_ffn_w8a8(x, st, counts,
+                                   activation_fn=activations.relu,
+                                   routed=routed)
+    again = fused_ffn.fused_ffn_w8a8(x, st, counts,
+                                     activation_fn=activations.relu,
+                                     routed=routed)
+    ref = fused_ffn.fused_ffn_w8a8_reference(x, st, counts, activations.relu)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert _dead_rows_zero(got, counts)
+
+
 # (bits, (E, C, K, H, N), bw): the C given is replaced by 20 and 1100
 SWIGLU_SHAPES = [
     (4, (4, 20, 256, 512, 384), 128),               # N != H

@@ -31,10 +31,10 @@ BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> (C entry point, its argument types); the sources define them
 SIGNATURES = {
-    # x, w, scales, counts, out; E, C, K, N, bits, blocks, dtype, device;
-    # stream
+    # x, w, scales, counts, out; E, C, K, N, bits, blocks, dtype,
+    # tile_rows, groups, device; stream
     "grouped_gemm_quant": ("grouped_gemm_quant_launch",
-                           [_P] * 5 + [_I] * 8 + [_P]),
+                           [_P] * 5 + [_I] * 10 + [_P]),
     # x, wstream, sb, counts, out, ws; E, C, K, kr, bw, t1, t2, n, bits,
     # act, dtype, tile_rows, split, device; stream
     "fused_ffn_quant": ("fused_ffn_quant_launch",

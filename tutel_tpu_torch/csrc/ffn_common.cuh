@@ -1,9 +1,10 @@
 // Shared by the expert-FFN kernels K2 (fused_ffn_quant.cu), K3
 // (fused_ffn_w8a8.cu), K4 (fused_swiglu_quant.cu) and K5
 // (grouped_gemm_w8a8.cu): type conversions, the activations, the staging
-// of a row tile of x for K3, the int8 x int8 dot of K3/K5 over four weight
-// columns per thread, and the hidden split of K2/K4 (the second half of
-// this file).
+// of a row tile of x for K3, the int8 x int8 dot of K5 over four weight
+// columns per thread (whose 4 x 4 byte transpose also builds K3's mma
+// operands, gemm_tc.cuh), and the hidden split of K2/K4 (the second half
+// of this file).
 //
 // Integer dots use __dp4a, which sums four int8 x int8 products into an
 // int32 in one instruction. It wants the four K-consecutive bytes of one
@@ -58,13 +59,13 @@ __device__ __forceinline__ float activate(float y) {
   }
 }
 
-// A row tile of x [rows, K] (rows K apart from xe) into xs [rows, W] in
-// the unpacked row order of the fused stream's first tiles: for INT4 each
-// half of x zero-padded from K/2 to kr, for INT8 the tail zero-padded to
-// W. Rows >= live are zeros. The caller synchronizes.
+// A row tile of x [rows, K] (rows K apart from xe) into xs [rows, W] (rows
+// `ws` apart) in the unpacked row order of the fused stream's first tiles:
+// for INT4 each half of x zero-padded from K/2 to kr, for INT8 the tail
+// zero-padded to W. Rows >= live are zeros. The caller synchronizes.
 template <int BITS, typename V>
 __device__ void stage_x(V* xs, const V* __restrict__ xe, int K, int kr, int W,
-                        int rows, int live, V zero) {
+                        int ws, int rows, int live, V zero) {
   const int kq = BITS == 4 ? K / 2 : K;
   for (int idx = threadIdx.x; idx < rows * W; idx += blockDim.x) {
     const int r = idx / W, i = idx % W;
@@ -75,7 +76,7 @@ __device__ void stage_x(V* xs, const V* __restrict__ xe, int K, int kr, int W,
       else
         src = i < K ? i : -1;
     }
-    xs[idx] = src >= 0 ? xe[(size_t)r * K + src] : zero;
+    xs[(size_t)r * ws + i] = src >= 0 ? xe[(size_t)r * K + src] : zero;
   }
 }
 

@@ -74,15 +74,16 @@ class LlamaFFNNetwork:
         """Weight-only INT8/INT4: K4 over the fused stream, else three K1
         calls with silu(y1) * y2 in x's dtype between them."""
         counts = getattr(ctx, "dispatch_count", None) if ctx else None
+        routed = getattr(ctx, "routed", None)
         stream = params.get("fused_stream")
         if stream is not None:
             return fused_swiglu_quant(x, stream, counts,
                                       activation_fn=self.activation_fn,
-                                      routed=getattr(ctx, "routed", None))
-        y1 = grouped_gemm_quant(x, params["w1"], counts)
-        y2 = grouped_gemm_quant(x, params["w2"], counts)
+                                      routed=routed)
+        y1 = grouped_gemm_quant(x, params["w1"], counts, routed=routed)
+        y2 = grouped_gemm_quant(x, params["w2"], counts, routed=routed)
         y = self.activation_fn(y1) * y2
-        return grouped_gemm_quant(y, params["w3"], counts)
+        return grouped_gemm_quant(y, params["w3"], counts, routed=routed)
 
 
 ExpertModule = LlamaFFNNetwork

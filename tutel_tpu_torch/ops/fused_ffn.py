@@ -534,29 +534,69 @@ def fused_ffn_quant(x, stream: FusedFFNStream, counts=None,
 fused_ffn_quant.launches = 0
 
 
-def tile_rows_w8a8(h):
-    """Rows per K3 block: the largest of 16, 8, 4 whose int8 x, float32
-    hidden, int8 hidden and two row scales fit in shared memory; None if
-    not even 4 fit."""
-    for rows in (16, 8, 4):
-        if rows * (6 * h + 8) <= SMEM_BYTES:
+# K3's shared memory (csrc/fused_ffn_w8a8.cu `w8a8_smem`): bytes after each
+# staged int8 row, floats after each float32 hidden row
+W8A8_X_PAD = 48
+W8A8_H_PAD = 4
+
+
+def w8a8_smem(rows, h):
+    """Shared memory of a K3 block of `rows` rows: int8 x and hidden and
+    the float32 hidden, each row padded, and two row scales."""
+    return rows * (2 * (h + W8A8_X_PAD) + 4 * (h + W8A8_H_PAD) + 8)
+
+
+def tile_rows_w8a8(h, e, c, routed=None):
+    """Rows per K3 block: 16 (two n-blocks of the mma) where the experts are
+    expected to hold more than 8 live rows each (`routed` rows over e
+    experts; None: all C rows), else 8 (one); the largest of that, 8 and 4
+    whose rows fit in shared memory; None if not even 4 fit."""
+    expected = c if routed is None else min(c, routed / e)
+    for rows in (16, 8, 4) if expected > 8 else (8, 4):
+        if w8a8_smem(rows, h) <= SMEM_BYTES:
             return rows
     return None
 
 
+# K3's tensor-core fragments (csrc/gemm_tc.cuh; the columns as K1's,
+# grouped_gemm_quant.tc_a_col): m16n8k32 int8, lane = 4 g + t
+
+
+def w8a8_step_rows(bits):
+    """Packed rows of one k-step (32 k of an m16n8k32 mma): at INT4 the
+    low nibbles of 16 packed rows, then their high nibbles."""
+    return 16 if bits == 4 else 32
+
+
+def w8a8_load_row(t, load):
+    """Packed row, within the k-step, of a lane's load (4 at INT4, 8 at
+    INT8): rows 4t .. 4t + 3 make A registers a0/a1 (and at INT4, from
+    their high nibbles, a2/a3); INT8 loads 4-7 are rows 16 + 4t .. for
+    a2/a3."""
+    return 4 * t + (load & 3) + 16 * (load >> 2)
+
+
+def w8a8_b_offset(bits, t, r, kr):
+    """First byte of B register r in a staged int8 row, from the k-step's
+    first packed row on; at INT4 register 1 is the high nibbles' x, kr on."""
+    return 4 * t + r * kr if bits == 4 else 4 * t + 16 * r
+
+
 def fused_ffn_w8a8(x, stream: FusedFFNStream, counts=None,
-                   activation_fn=gelu):
+                   activation_fn=gelu, *, routed=None):
     """The fused FFN with both contractions int8 x int8 -> int32 (W8A8 /
     W4A8): x is quantized per row here, the float32 hidden is re-quantized
     per row inside the kernel. Same rows and signature as
-    `fused_ffn_quant`. CPU tensors run the plain twin; CUDA tensors run
-    kernel K3, and anything the kernel does not take raises."""
+    `fused_ffn_quant`; `routed` (the rows routed to the experts, known on
+    the host) picks the row tile (`tile_rows_w8a8`). CPU tensors run the
+    plain twin; CUDA tensors run kernel K3, and anything the kernel does
+    not take raises."""
     _check_x("fused_ffn_w8a8", x, stream)
     if x.device.type == "cpu":
         return fused_ffn_w8a8_reference(x, stream, counts, activation_fn)
     act = kernel_code(activation_fn)
     w = _check_cuda_stream(x, stream)
-    rows = tile_rows_w8a8(w)
+    rows = tile_rows_w8a8(w, x.shape[0], x.shape[1], routed)
     if rows is None or stream.kr % 4 or \
             stream.k % (8 if stream.bits == 4 else 4):
         raise ValueError(f"K3 needs Kr % 4 == 0, K % 4 == 0 (K % 8 for "

@@ -109,7 +109,8 @@ def w8a8_ffn(x, params, ctx, activation_fn, output_dim):
     counts = getattr(ctx, "dispatch_count", None) if ctx else None
     stream = params.get("fused_stream")
     if stream is not None and stream.n >= output_dim:
-        out = fused_ffn_w8a8(x, stream, counts, activation_fn=activation_fn)
+        out = fused_ffn_w8a8(x, stream, counts, activation_fn=activation_fn,
+                             routed=getattr(ctx, "routed", None))
         return out[..., :output_dim]
     return two_call_ffn(grouped_gemm_w8a8, x, params, counts, activation_fn,
                         output_dim)
