@@ -12,9 +12,9 @@ In order, it
      them K7's source once more with -Xptxas -v (registers, spills and
      shared memory of each template instance), and counts the
      tensor-core instructions (HMMA, HGMMA) in K7's library with
-     cuobjdump -sass, failing if there are none; and for K1 (HMMA) and K3
-     (IMMA) the same count per kernel instance and the instructions a lane
-     issues per weight byte in each weight loop (gemm_tc_sass);
+     cuobjdump -sass, failing if there are none; and for K1 (HMMA), K3 and
+     K5 (IMMA) the same count per kernel instance and the instructions a
+     lane issues per weight byte in each weight loop (gemm_tc_sass);
   3. holds each expert kernel against its plain PyTorch twin on the card
      in bfloat16, and times kernel, twin and a bf16 torch.bmm yardstick
      over the dequantized weights with CUDA events: K1 grouped_gemm_quant
@@ -25,9 +25,12 @@ In order, it
      capacity 8192), K1 with the row tile and groups its plan picks from
      the routed rows, its profiled device ms, host microseconds and share
      of the bound, and two calls bitwise equal; K5 grouped_gemm_w8a8 (fc1
-     as one GEMM, with the same timings as K1) and K3 fused_ffn_w8a8 (held
-     to max abs error 0 against its twin, two calls bitwise equal, with its
-     row tile) at the decode shape in INT4 and INT8, with every row
+     as one GEMM, with the same timings and plan as K1) and K3
+     fused_ffn_w8a8 (with its row tile), each held to max abs error 0
+     against its twin with two calls bitwise equal, each with its whole
+     call's device ms and its kernel's alone (K3 also the device ms of its
+     wrapper's quantization of x), at the decode shape in INT4 and INT8,
+     with every row
      live, and at K < H in INT8 with gelu; K4 fused_swiglu_quant at the
      SwiGLU LM's expert shapes (32 experts, 1024 x 2048 x 1024, INT4, silu;
      a decode step and a prefill chunk of 16,384 routed rows); K2 and K4
@@ -57,9 +60,10 @@ In order, it
      the two-call path with squared ReLU lifted by jit.pallas_kernel as
      the experts' activation (K1, K10, K1 each step, and nothing else);
      each run counts every kernel's launches; between them one decode
-     chunk of the two-call and of the W4A8 fused server at 256 slots under
-     torch.profiler (moe_profile: device busy ms per step and busy share,
-     K1's or K3's device ms per step and share, the top kernels);
+     chunk of the two-call, the W4A8 fused and the W4A8 two-call server at
+     256 slots under torch.profiler (moe_profile: device busy ms per step
+     and busy share, K1's, K3's or K5's device ms per step and share, the
+     top kernels);
   6. checks small engines on the card against the same engines on the CPU
      (INT4 weight-only within 1e-4, also two-call with the lifted squared
      ReLU; W4A8 within 2e-3);
@@ -364,15 +368,18 @@ K1_DESIGN = ("tensor cores: mma.sync m16n8k16 bf16, the weights as M, "
              "at a time")
 K3_DESIGN = ("tensor cores: mma.sync m16n8k32 s8, the weights as M, one "
              "block per (expert, row tile), register double buffer")
+K5_DESIGN = ("tensor cores: mma.sync m16n8k32 s8, the weights as M, K1's "
+             "grid, x quantized per row inside the kernel (one launch)")
 
 
-def timed_gemm(record, kernel, plain, bmm, bounds):
+def timed_gemm(record, kernel, symbol, plain, bmm, bounds):
     """A grouped GEMM's check with its timings: event ms, device ms (every
-    kernel of the call), host microseconds (200 calls without a
-    synchronize), its share of the bound on the device, and the plain twin
-    and the bf16 torch.bmm yardstick."""
+    kernel of the call, and the kernel `symbol` alone), host microseconds
+    (200 calls without a synchronize), its share of the bound on the
+    device, and the plain twin and the bf16 torch.bmm yardstick."""
     dev = device_ms(kernel, None)
     return {**record, "ms": median_ms(kernel), "device_ms": dev,
+            "kernel_device_ms": device_ms(kernel, symbol),
             "host_us": host_us(kernel, calls=200),
             "plain_ms": median_ms(plain), "bf16_bmm_ms": median_ms(bmm),
             **bounds, "bound_share": bounds["bound_ms"] / dev}
@@ -415,7 +422,8 @@ def check_kernels(shape, bandwidth):
          "plan": gq.tc_plan(e, c, live_rows), "design": K1_DESIGN,
          "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": BF16_TOL,
          "bitwise_repeat": True},
-        k1, lambda: gq.grouped_gemm_quant_reference(x, w1, counts),
+        k1, "gmm_quant_kernel",
+        lambda: gq.grouped_gemm_quant_reference(x, w1, counts),
         lambda: torch.bmm(x, w1_dense), bound(moved, ops, bandwidth)))
     del w1_dense
 
@@ -481,17 +489,27 @@ def check_w8a8_kernels(shape, bandwidth):
             "bits": bits, "tol": BF16_TOL}
     out = []
 
-    got = w8a8.grouped_gemm_w8a8(x, w1, counts)
+    # K5 on fc1, told the routed rows as the MoE layer tells it (they pick
+    # the row tile); x is quantized inside the kernel
+    def k5():
+        return w8a8.grouped_gemm_w8a8(x, w1, counts, routed=live_rows)
+    got, again = k5(), k5()
     ref = w8a8.grouped_gemm_w8a8_reference(x, w1, counts)
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref, counts)
+    # the twin's quantization, exact integer sums and the twin's rescales
+    if abs_err != 0 or not torch.equal(got, again):
+        raise RuntimeError(f"K5 at {name}: max |kernel - twin| {abs_err} "
+                           f"(must be 0), or two calls differ")
     w1_dense = quant.dequantize(w1, torch.bfloat16)
     moved = (live_experts * (k * h * bits // 8 + 4 * h) + live_rows * k * 2
              + e * c * h * 2 + 4 * e)
     out.append(timed_gemm(
         {"name": "grouped_gemm_w8a8", **base, "N": h,
-         "max_abs_err": abs_err, "max_rel_err": rel_err},
-        lambda: w8a8.grouped_gemm_w8a8(x, w1, counts),
+         "plan": gq.tc_plan(e, c, live_rows), "design": K5_DESIGN,
+         "max_abs_err": abs_err, "max_rel_err": rel_err,
+         "bitwise_repeat": True},
+        k5, "gmm_w8a8_kernel",
         lambda: w8a8.grouped_gemm_w8a8_reference(x, w1, counts),
         lambda: torch.bmm(x, w1_dense),
         bound(moved, 2 * live_rows * k * h, bandwidth, INT8_PEAK)))
@@ -523,6 +541,9 @@ def check_w8a8_kernels(shape, bandwidth):
         "max_abs_err": abs_err, "max_rel_err": rel_err,
         "bitwise_repeat": True,
         "ms": median_ms(k3), "device_ms": dev,
+        # the kernel alone, and the wrapper's quantization of x before it
+        "kernel_device_ms": device_ms(k3, "fused_w8a8_kernel"),
+        "quantize_ms": device_ms(lambda: quant.quantize_activations(x), None),
         "plain_ms": median_ms(lambda: fused_ffn.fused_ffn_w8a8_reference(
             x, stream, counts, act_fn)),
         "bf16_bmm_ms": median_ms(lambda: torch.bmm(
@@ -1218,10 +1239,12 @@ def moe_profile(layer, params, auto_fuse, kernel, seed, steps=8):
 
 
 def moe_profiles(layer, layer_w4a8, params, smi):
-    """`moe_profile` of the two-call path (K1 twice a step) and the W4A8
-    fused path (K3 once a step), one JSON line each."""
+    """`moe_profile` of the two-call path (K1 twice a step), the W4A8
+    fused path (K3 once a step) and the W4A8 two-call path (K5 twice a
+    step), one JSON line each."""
     for lay, auto_fuse, kernel in ((layer, False, "grouped_gemm_quant"),
-                                   (layer_w4a8, True, "fused_ffn_w8a8")):
+                                   (layer_w4a8, True, "fused_ffn_w8a8"),
+                                   (layer_w4a8, False, "grouped_gemm_w8a8")):
         print(json.dumps({"phase": "moe_profile", "auto_fuse": auto_fuse,
                           **moe_profile(lay, params, auto_fuse, kernel,
                                         SEED + 9), "card": smi}), flush=True)
@@ -1357,7 +1380,9 @@ def main():
     print(json.dumps({"phase": "gemm_tc_sass", "grouped_gemm_quant": mma_sass(
         "grouped_gemm_quant", "gmm_quant_kernel_tc", "HMMA"),
         "fused_ffn_w8a8": mma_sass("fused_ffn_w8a8", "fused_w8a8_kernel",
-                                   "IMMA")}), flush=True)
+                                   "IMMA"),
+        "grouped_gemm_w8a8": mma_sass("grouped_gemm_w8a8", "gmm_w8a8_kernel",
+                                      "IMMA")}), flush=True)
 
     # the decode server's shape: capacity 32 (the speculated buffer at 256
     # active tokens), row counts of 512 top-2 routings over 128 experts

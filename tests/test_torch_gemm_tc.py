@@ -1,9 +1,10 @@
-"""The tensor-core bodies of K1 (`grouped_gemm_quant`, bfloat16 x) and K3
-(`fused_ffn_w8a8`), emulated on the CPU from the fragment mapping the
-kernels mirror (`csrc/gemm_tc.cuh`; `tc_*` in ops/grouped_gemm_quant.py,
-`w8a8_*` in ops/fused_ffn.py): each mma is assembled lane by lane and
-register by register from the bytes each lane loads, in the permuted K
-order, and the products are placed where the kernel's D registers go.
+"""The tensor-core bodies of K1 (`grouped_gemm_quant`, bfloat16 x), K3
+(`fused_ffn_w8a8`) and K5 (`grouped_gemm_w8a8`), emulated on the CPU from
+the fragment mapping the kernels mirror (`csrc/gemm_tc.cuh`; `tc_*` in
+ops/grouped_gemm_quant.py, `w8a8_*` in ops/fused_ffn.py, `k5_*` in
+ops/w8a8.py): each mma is assembled lane by lane and register by register
+from the bytes each lane loads, in the permuted K order, and the products
+are placed where the kernel's D registers go.
 
 Tolerances and why:
   * K1 on integer-valued x (every float32 sum exact in any order): the
@@ -16,7 +17,12 @@ Tolerances and why:
     nibble's value exactly;
   * K3: int32 sums are exact, so the emulation equals the twin bit for bit,
     and the JAX kernel as the twin does (tests/test_torch_w8a8.py): no
-    int8 hidden value differs, live rows within 1e-5.
+    int8 hidden value differs, live rows within 1e-5;
+  * K5: x quantized as the kernel does it (a warp's lanes over a row for
+    the absmax, a warp's k-steps a chunk at a time) equals
+    `quantize_activations` bit for bit, and the int32 sums are exact, so
+    the emulation equals the twin and the JAX kernel (interpret mode) bit
+    for bit: tolerance 0.
 """
 
 import jax
@@ -30,7 +36,9 @@ from tutel_tpu.ops import grouped_gemm_pallas as jgp
 from tutel_tpu.ops import quant as jq
 from tutel_tpu.ops import w8a8_pallas as jw8
 from tutel_tpu_torch import convert
-from tutel_tpu_torch.ops import activations, fused_ffn, quant
+from types import SimpleNamespace
+
+from tutel_tpu_torch.ops import activations, fused_ffn, quant, w8a8
 from tutel_tpu_torch.ops import grouped_gemm_quant as tgp
 
 torch.set_num_threads(1)
@@ -345,7 +353,7 @@ def _prmt(a, b, sel):
 
 
 def _transpose4(w):
-    """ffn_common.cuh `transpose4`: four rows of four columns -> column j's
+    """gemm_tc.cuh `transpose4`: four rows of four columns -> column j's
     bytes of rows 0..3, row i in byte i."""
     a, b = _prmt(w[0], w[1], 0x5140), _prmt(w[2], w[3], 0x5140)
     d, f = _prmt(w[0], w[1], 0x7362), _prmt(w[2], w[3], 0x7362)
@@ -357,6 +365,35 @@ def _s8(word):
     """[32] uint32 -> [32, 4] int8 values, byte 0 first."""
     return np.ascontiguousarray(word).view(np.int8).reshape(-1, 4).astype(
         np.int64)
+
+
+def _s8_step(lb, bmat, bits, vec):
+    """The s8 mmas of one k-step (gemm_tc.cuh `s8_mma_group`): from the
+    lanes' loaded words lb[load] [32, vec / 4] and the B matrices bmat
+    [nbs, 32, 8], each mma's A assembled register by register; returns the
+    D registers [nbs, vec / 2, 32 lanes, 4]."""
+    nbs = len(bmat)
+    acc = np.zeros((nbs, vec // 2, 32, 4), np.int64)
+    for wi in range(vec // 4):
+        w = [lb[l][:, wi] for l in range(4)]
+        if bits == 4:
+            lo = _transpose4([(x << 4) & 0xF0F0F0F0 for x in w])
+            hi = _transpose4([x & 0xF0F0F0F0 for x in w])
+        else:
+            lo = _transpose4(w)
+            hi = _transpose4([lb[4 + l][:, wi] for l in range(4)])
+        for m in range(2):
+            a = [lo[2 * m], lo[2 * m + 1], hi[2 * m], hi[2 * m + 1]]
+            amat = np.zeros((16, 32), np.int64)
+            for reg in range(4):
+                kk = 4 * T[:, None] + 16 * (reg >> 1) + np.arange(4)
+                amat[(G + 8 * (reg & 1))[:, None], kk] = _s8(a[reg])
+            for nb in range(nbs):
+                d = amat @ bmat[nb]
+                for reg in range(4):
+                    acc[nb, 2 * wi + m, :, reg] = d[G + 8 * (reg >> 1),
+                                                    2 * T + (reg & 1)]
+    return acc
 
 
 def _k3_phase(src, rows, tiles, prow, wst, kr, vec, bits):
@@ -387,25 +424,7 @@ def _k3_phase(src, rows, tiles, prow, wst, kr, vec, bits):
                              G[:, None]] = np.stack(
                             [src[xrow[nb], s * ks + fused_ffn.w8a8_b_offset(
                                 bits, T, r, kr) + j] for j in range(4)], 1)
-                for wi in range(vec // 4):
-                    w = [lb[l][:, wi] for l in range(4)]
-                    if bits == 4:
-                        lo = _transpose4([(x << 4) & 0xF0F0F0F0 for x in w])
-                        hi = _transpose4([x & 0xF0F0F0F0 for x in w])
-                    else:
-                        lo = _transpose4(w)
-                        hi = _transpose4([lb[4 + l][:, wi] for l in range(4)])
-                    for m in range(2):
-                        a = [lo[2 * m], lo[2 * m + 1], hi[2 * m], hi[2 * m + 1]]
-                        amat = np.zeros((16, 32), np.int64)
-                        for reg in range(4):
-                            kk = 4 * T[:, None] + 16 * (reg >> 1) + np.arange(4)
-                            amat[(G + 8 * (reg & 1))[:, None], kk] = _s8(a[reg])
-                        for nb in range(nbs):
-                            d = amat @ bmat[nb]
-                            for reg in range(4):
-                                acc[nb, 2 * wi + m, :, reg] += d[
-                                    G + 8 * (reg >> 1), 2 * T + (reg & 1)]
+                acc += _s8_step(lb, bmat, bits, vec)
             for nb in range(nbs):
                 for i in range(vec // 2):
                     for reg in range(4):
@@ -561,3 +580,268 @@ def test_k3_fragments_cover_each_weight_byte_once():
         want = (list(range(16)) + list(range(kr, kr + 16)) if bits == 4
                 else list(range(32)))
         assert got == want
+
+
+# ---------------------------------------------------------------------------
+# K5
+
+
+def k5_row_scales(xt):
+    """The kernel's row scales of the live rows xt [live, K] (float32): the
+    row's warp's lane l takes the 4-value groups from 4 l on, 128 apart,
+    then a butterfly of maxima over the lanes; max / 127, 1 for zeros."""
+    k = xt.shape[1]
+    lanes = np.zeros((xt.shape[0], 32), np.float32)
+    for lane in range(32):
+        idx = (np.arange(4 * lane, k, 128)[:, None] + np.arange(4)).ravel()
+        if idx.size:
+            lanes[:, lane] = np.abs(xt[:, idx]).max(axis=1)
+    for off in (16, 8, 4, 2, 1):
+        lanes = np.maximum(lanes, lanes[:, LANES ^ off])
+    m = lanes[:, 0]
+    return np.where(m > 0, m / np.float32(127), np.float32(1))
+
+
+def k5_stage(xt, sx, bits, c, n, chunk, k, rows):
+    """A warp's staged int8 x of its k-steps [c, c + n): [rows, 32 chunk +
+    pad], rows past the live ones zero."""
+    out = np.zeros((rows, 32 * chunk + w8a8.K5_X_PAD), np.int8)
+    for src, dst in w8a8.k5_stage_words(bits, c, n, chunk, k):
+        if src is not None:
+            q = np.rint(xt[:, src:src + 4] / sx[:, None])
+            out[:len(xt), dst:dst + 4] = np.clip(q, -128, 127)
+    return out
+
+
+def emulate_k5(x, values, scales, counts, bits, vec, tile_rows):
+    """K5 on the CPU: the output [E, C, N] in x's dtype (rows past counts[e]
+    zero). Each tile's live rows are quantized as the kernel does it, each
+    warp's k-steps staged a chunk at a time, each mma assembled lane by
+    lane; the warps' int32 partials are summed, then (float)sum * sx * sw
+    in float32."""
+    e_n, c, k = x.shape
+    kp, n = values.shape[1:]
+    xf = x.float().numpy()
+    ks = fused_ffn.w8a8_step_rows(bits)
+    nsteps = w8a8.k5_steps(bits, k)
+    chunk = w8a8.k5_chunk_steps(bits, k)
+    loads = 4 if bits == 4 else 8
+    out = np.zeros((e_n, c, n), np.float32)
+    for e in range(e_n):
+        count = min(max(int(counts[e]), 0), c)
+        for r0, live, nbs in tgp.tc_row_tiles(count, tile_rows):
+            xt = xf[e, r0:r0 + live]
+            sx = k5_row_scales(xt)
+            for c0 in range(0, n, 8 * vec):
+                total = np.zeros((8 * nbs, 8 * vec), np.int64)
+                for warp in range(4):
+                    s_end = (warp + 1) * nsteps // 4
+                    prow = min(kp, s_end * ks)
+                    for ch0, ch1 in tgp.tc_warp_chunks(nsteps, chunk, warp):
+                        xs = k5_stage(xt, sx, bits, ch0, ch1 - ch0, chunk, k,
+                                      8 * nbs)
+                        for s in range(ch0, ch1):
+                            lb = [_lane_bytes(values[e], s * ks + np.array(
+                                [fused_ffn.w8a8_load_row(t, l) for t in T]),
+                                c0 + vec * G, vec, prow, n).view(np.uint32)
+                                for l in range(loads)]
+                            bmat = np.zeros((nbs, 32, 8), np.int64)
+                            for nb in range(nbs):
+                                for r in range(2):
+                                    off = (s - ch0) * ks + \
+                                        fused_ffn.w8a8_b_offset(bits, T, r,
+                                                                16 * chunk)
+                                    bmat[nb, 4 * T[:, None] + 16 * r
+                                         + np.arange(4), G[:, None]] = \
+                                        np.stack([xs[8 * nb + G, off + j]
+                                                  for j in range(4)], 1)
+                            d = _s8_step(lb, bmat, bits, vec)
+                            for nb in range(nbs):
+                                for i in range(vec // 2):
+                                    for reg in range(4):
+                                        total[8 * nb + 2 * T + (reg & 1),
+                                              tgp.tc_a_col(vec, G, i,
+                                                           reg >> 1)] += \
+                                            d[nb, i, :, reg]
+                if bits == 4:
+                    assert not np.any(total % 16)
+                    total >>= 4
+                c1 = min(c0 + 8 * vec, n)
+                out[e, r0:r0 + live, c0:c1] = (
+                    total[:live, :c1 - c0].astype(np.float32) * sx[:, None]
+                    * scales[e, 0, c0:c1])
+    return torch.from_numpy(out).to(x.dtype)
+
+
+# (bits, K, N, vec): N past a whole strip; vec 4 where N % 16 != 0; a last
+# k-step only partly inside the packed rows (INT4 K = 200, INT8 K = 104)
+K5_SHAPES = [(4, 256, 144, 16), (4, 200, 40, 4), (8, 136, 144, 16),
+             (8, 104, 40, 4)]
+
+
+def _k5_case(bits, k, n, seed, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((E, C, k)).astype(
+        np.float32) * 2).to(dtype)
+    x[2, 3] = 0                                    # a row of zeros: scale 1
+    w = rng.standard_normal((E, k, n)).astype(np.float32) * 0.05
+    jw = jq.quantize(jnp.asarray(w), bits)
+    return x, jw, convert.from_jax_params(jw, "cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_rows", [8, 16])
+@pytest.mark.parametrize("bits,k,n,vec", K5_SHAPES)
+def test_k5_fragments_match_twin_and_pallas_bitwise(bits, k, n, vec,
+                                                    tile_rows, dtype):
+    x, jw, tw = _k5_case(bits, k, n, bits + k + n, dtype)
+    counts = torch.from_numpy(COUNTS)
+    got = emulate_k5(x, tw.values.numpy(), tw.scales.numpy(), COUNTS, bits,
+                     vec, tile_rows)
+    assert torch.equal(got, w8a8.grouped_gemm_w8a8(x, tw, counts))
+    jx = jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    ref = np.asarray(jw8.grouped_gemm_w8a8(jx, jw, jnp.asarray(COUNTS),
+                                           interpret=True).astype(jnp.float32))
+    live = _live(ref.shape, COUNTS)
+    np.testing.assert_array_equal(np.where(live, got.float().numpy(), 0),
+                                  np.where(live, ref, 0))
+
+
+def test_k5_fragments_over_several_chunks(monkeypatch):
+    """With 4 k-steps a chunk each warp quantizes its x in several chunks;
+    the emulation stays bitwise equal to the twin."""
+    monkeypatch.setattr(tgp, "TC_CHUNK_STEPS", 4)
+    counts = np.array([3, 9], np.int32)
+    rng = np.random.default_rng(12)
+    for bits, k in ((4, 1024), (8, 776)):
+        x = torch.from_numpy(rng.standard_normal((2, 12, k)).astype(
+            np.float32)).to(torch.bfloat16)
+        tw = quant.quantize(torch.from_numpy(
+            rng.standard_normal((2, k, 40)).astype(np.float32) * 0.05), bits)
+        assert w8a8.k5_chunk_steps(bits, k) == 4
+        assert w8a8.k5_steps(bits, k) > 16         # several chunks a warp
+        got = emulate_k5(x, tw.values.numpy(), tw.scales.numpy(), counts,
+                         bits, 4, 16)
+        assert torch.equal(got, w8a8.grouped_gemm_w8a8(
+            x, tw, torch.from_numpy(counts)))
+
+
+@pytest.mark.parametrize("chunk_cap", [4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,k", [(4, 200), (4, 2048), (8, 104),
+                                    (8, 2048)])
+def test_k5_quantization_mirror_is_quantize_activations(bits, k, dtype,
+                                                        chunk_cap,
+                                                        monkeypatch):
+    """The kernel's quantization (the absmax a warp's lanes at a time, then
+    each warp's k-steps chunk by chunk, `k5_stage_words`) gives
+    `quantize_activations`' int8 values and scales bit for bit, and the JAX
+    function's; each x value is staged once."""
+    monkeypatch.setattr(tgp, "TC_CHUNK_STEPS", chunk_cap)
+    rng = np.random.default_rng(bits + k)
+    x = torch.from_numpy(rng.standard_normal((2, 6, k)).astype(
+        np.float32) * 3).to(dtype)
+    x[1, 2] = 0
+    tq, ts = quant.quantize_activations(x)
+    jqv, js = jw8.quantize_activations(jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jqv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    nsteps, chunk = w8a8.k5_steps(bits, k), w8a8.k5_chunk_steps(bits, k)
+    xf = x.float().numpy().reshape(-1, k)
+    sx = k5_row_scales(xf)
+    xq = np.zeros(xf.shape, np.int8)
+    seen = np.zeros(k, np.int64)
+    for warp in range(4):
+        for c0, c1 in tgp.tc_warp_chunks(nsteps, chunk, warp):
+            xs = k5_stage(xf, sx, bits, c0, c1 - c0, chunk, k, len(xf))
+            for src, dst in w8a8.k5_stage_words(bits, c0, c1 - c0, chunk, k):
+                if src is not None:
+                    xq[:, src:src + 4] = xs[:, dst:dst + 4]
+                    seen[src:src + 4] += 1
+    assert np.all(seen == 1)
+    np.testing.assert_array_equal(xq, tq.numpy().reshape(-1, k))
+    np.testing.assert_array_equal(sx, ts.numpy().reshape(-1))
+
+
+@pytest.mark.parametrize("vec", [16, 4])
+@pytest.mark.parametrize("bits,k", [(4, 200), (4, 2048), (4, 14336),
+                                    (8, 104), (8, 2048)])
+def test_k5_reads_each_weight_byte_once(bits, k, vec):
+    """The 4 warps' loads over one strip as the kernel issues them (a
+    warp's first group before its chunks, then each loop turn's groups
+    s + D and s + 2D, at packed rows below the warp's own end) bring every
+    (packed row, strip column) once: no load runs into another warp's
+    rows, not even a group ahead."""
+    kp = k // 2 if bits == 4 else k
+    ks = fused_ffn.w8a8_step_rows(bits)
+    nsteps, chunk = w8a8.k5_steps(bits, k), w8a8.k5_chunk_steps(bits, k)
+    depth, loads = w8a8.K5_DEPTH, 4 if bits == 4 else 8
+    seen = np.zeros((kp, 8 * vec), np.int64)
+    for warp in range(4):
+        prow = min(kp, (warp + 1) * nsteps // 4 * ks)
+
+        def load(s):
+            for d in range(depth):
+                for t in range(4):
+                    for l in range(loads):
+                        row = (s + d) * ks + fused_ffn.w8a8_load_row(t, l)
+                        if row < prow:
+                            seen[row] += 1
+
+        runs = tgp.tc_warp_chunks(nsteps, chunk, warp)
+        if runs:
+            load(runs[0][0])
+        for c0, c1 in runs:
+            assert (c1 - c0) % (2 * depth) == 0 or c1 == runs[-1][1]
+            for s in range(c0, c1, 2 * depth):
+                load(s + depth)
+                load(s + 2 * depth)
+    assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("e,c,routed,plan", [
+    (128, 32, 0, (8, 1)),           # nothing routed
+    (128, 32, None, (16, 2)),       # every row may be live
+    (128, 32, 512, (8, 1)),         # the W4A8 decode step: 4 rows an expert
+])
+def test_k5_plan_from_routed(e, c, routed, plan, monkeypatch):
+    """K5 takes K1's plan from the routed rows, and the W8A8 two-call FFN
+    passes the MoE layer's routed rows to both of its K5 calls."""
+    assert tgp.tc_plan(e, c, routed) == plan
+    seen = []
+
+    def spy(x, qw, counts=None, *, routed=None):
+        seen.append(routed)
+        return w8a8.grouped_gemm_w8a8_reference(x, qw, counts)
+
+    monkeypatch.setattr(w8a8, "grouped_gemm_w8a8", spy)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((4, 8, 64)).astype(np.float32))
+    params = {name: quant.quantize(torch.from_numpy(rng.standard_normal(
+        shape).astype(np.float32) * 0.05), 4)
+        for name, shape in (("fc1_w", (4, 64, 96)), ("fc2_w", (4, 96, 64)))}
+    ctx = SimpleNamespace(dispatch_count=torch.tensor([8, 0, 3, 5]),
+                          routed=routed)
+    out = w8a8.w8a8_ffn(x, params, ctx, activations.relu, 64)
+    assert out.shape == (4, 8, 64) and seen == [routed, routed]
+
+
+@pytest.mark.parametrize("k", [768, 2048, 8192, 14336])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_k5_smem_does_not_grow_with_k(bits, k):
+    """A block's shared memory stays at or under its 32-k-step chunk's
+    (66,560 bytes at 16 rows), under the 227 KB a block may take, and a
+    staged row's stride keeps the 8 rows x 4 lanes of a B load on 32
+    distinct banks."""
+    for rows in (8, 16):
+        for vec in (4, 16):
+            got = w8a8.k5_smem(bits, vec, rows, k)
+            assert got <= 4 * rows * (32 * 32 + w8a8.K5_X_PAD)
+            assert got <= fused_ffn.SMEM_BYTES
+    assert w8a8.k5_smem(bits, 16, 16, 14336) == 66560
+    words = (32 * w8a8.k5_chunk_steps(bits, k) + w8a8.K5_X_PAD) // 4
+    banks = {(words * g + t) % 32 for g in range(8) for t in range(4)}
+    assert len(banks) == 32
+

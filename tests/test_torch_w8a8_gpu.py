@@ -8,8 +8,9 @@ kernel has no CPU mode). This file imports no JAX; on a machine without
 JAX run it as `python -m pytest --noconftest tests/test_torch_w8a8_gpu.py`.
 
 Tolerances, max |kernel - twin| / max |twin| over live rows:
-  * K5 1e-6 in both types: the integer sums are exact and the kernel makes
-    the twin's two float32 products, so the results are equal;
+  * K5 0 in both types (`torch.equal`): the kernel quantizes x with the
+    twin's arithmetic, the integer sums are exact and it makes the twin's
+    two float32 products in the same order, so the results are equal;
   * K3 1e-6 with relu, for the same reason (the hidden and its
     re-quantization are equal too); with gelu or silu the kernel's tanhf
     or expf may differ from torch's by an ulp, which can move one int8
@@ -21,11 +22,16 @@ Tolerances, max |kernel - twin| / max |twin| over live rows:
     devices can move one int8 activation by one step in a later step.
 """
 
+import re
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 from tutel_tpu_torch import moe
+from tutel_tpu_torch.csrc import build
 from tutel_tpu_torch.models import TransformerMoE, TransformerMoEConfig
 from tutel_tpu_torch.ops import activations, fused_ffn, quant, w8a8
 from tutel_tpu_torch.serving import LmDecodeEngine, LmRequest
@@ -90,8 +96,59 @@ def test_grouped_gemm_w8a8_kernel_matches_twin(cuda, dtype, bits, blocks):
     torch.cuda.synchronize()
     assert w8a8.grouped_gemm_w8a8.launches == before + 1
     ref = w8a8.grouped_gemm_w8a8_reference(x, qw, counts)
-    assert got.dtype == dtype and _rel_err(got, ref, counts) <= 1e-6
+    assert got.dtype == dtype and torch.equal(got, ref)
     assert _dead_rows_zero(got, counts)
+
+
+# live rows 0, 1, 7, 8, 9, 16, 17 and 20: one and two n-blocks of the mma
+# in a 16-row tile, a second tile, empty and full experts
+W8A8_COUNTS = [0, 1, 7, 8, 9, 16, 17, 20]
+
+
+@pytest.mark.parametrize("routed", [0, None])
+@pytest.mark.parametrize("k,n", [
+    (768, 640),                     # 5 strips; 6 k-steps a warp at INT4
+    (2048, 2048),                   # the MoE decode widths
+    (14336, 640),                   # x quantized in several chunks a warp
+    (776, 200),                     # N % 16 != 0: 4-byte loads, 32-column
+])                                  # strips; a partial last k-step
+@pytest.mark.parametrize("bits,blocks", [(4, 1), (4, 2), (8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_w8a8_tensor_cores_equal_twin(cuda, dtype, bits, blocks,
+                                                   k, n, routed):
+    """K5's int8 mmas, with x quantized inside the kernel, against the twin
+    bit for bit, in 8-row tiles (routed 0) and in 16-row tiles with two
+    row-tile groups (routed None); one launch a call, two calls equal,
+    rows past the counts zeros."""
+    g = torch.Generator(device=cuda).manual_seed(bits + blocks + k + n)
+    e, c = len(W8A8_COUNTS), W8A8_COUNTS[-1]
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(dtype)
+    x[2, 3] = 0.0                                   # a row of zeros: scale 1
+    qw = quant.quantize(torch.randn(e, k, n, generator=g, device=cuda) * 0.05,
+                        bits, shard_blocks=blocks)
+    counts = torch.tensor(W8A8_COUNTS, dtype=torch.int32, device=cuda)
+    before = w8a8.grouped_gemm_w8a8.launches
+    got = w8a8.grouped_gemm_w8a8(x, qw, counts, routed=routed)
+    again = w8a8.grouped_gemm_w8a8(x, qw, counts, routed=routed)
+    torch.cuda.synchronize()
+    assert w8a8.grouped_gemm_w8a8.launches == before + 2
+    ref = w8a8.grouped_gemm_w8a8_reference(x, qw, counts)
+    assert got.shape == (e, c, n) and got.dtype == dtype
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert _dead_rows_zero(got, counts)
+
+
+def test_grouped_gemm_w8a8_library_runs_on_tensor_cores(cuda):
+    """Every instance of K5's kernel holds IMMA (int8 mma.sync), read from
+    the SASS of the built library with cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    build.load("grouped_gemm_w8a8")
+    sass = subprocess.run(
+        [tool, "-sass", str(build.library_path("grouped_gemm_w8a8"))],
+        capture_output=True, text=True, check=True).stdout
+    parts = [p for p in re.split(r"\n\s*Function : ", sass)[1:]
+             if "gmm_w8a8_kernel" in p.split(None, 1)[0]]
+    assert len(parts) == 16 and all("IMMA." in p for p in parts)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Read the grouped GEMM K1 (`grouped_gemm_quant`) and the fused W8A8 FFN
-K3 (`fused_ffn_w8a8`) on one NVIDIA card, at the shapes `chip_smoke.py`
-checks and with each row tile K1 takes.
+"""Read the grouped GEMMs K1 (`grouped_gemm_quant`) and K5
+(`grouped_gemm_w8a8`) and the fused W8A8 FFN K3 (`fused_ffn_w8a8`) on one
+NVIDIA card, at the shapes `chip_smoke.py` checks and with each row tile
+K1 and K5 take.
 
 Run from the root of a checkout, with no arguments:
 
     python3 tools/gemm_tc_sweep.py
 
-It builds only `csrc/grouped_gemm_quant.cu` and `csrc/fused_ffn_w8a8.cu`
-(and both once more with -Xptxas -v: registers, spills and shared memory of
-each kernel instance), then prints one JSON line per reading:
+It builds only `csrc/grouped_gemm_quant.cu`, `csrc/fused_ffn_w8a8.cu` and
+`csrc/grouped_gemm_w8a8.cu` (and each once more with -Xptxas -v:
+registers, spills and shared memory of each kernel instance), then prints
+one JSON line per reading:
 
-  * `sass`: the tensor-core instructions of each K1/K3 instance and the
+  * `sass`: the tensor-core instructions of each K1/K3/K5 instance and the
     instructions a lane issues per weight byte in its weight loop
     (`chip_smoke.mma_sass`);
   * K1 in bfloat16 at the MoE decode step (128 experts, 2048 x 2048, INT4,
@@ -21,15 +23,20 @@ each kernel instance), then prints one JSON line per reading:
     hidden (8 experts, every row live), each with the row tile the wrapper
     picks and with the other one (8 or 16 rows, through the wrapper's
     `_launch`); and in float32 (the CUDA-core body) at the MoE decode step;
+  * K5 at `chip_smoke.py`'s four W8A8 shapes (the MoE decode step in INT4
+    and INT8, every row live, and K < H in INT8), each with the row tile
+    the wrapper picks and with the other one, its whole call's device ms
+    and the kernel's alone (`kernel_device_ms`) and `host_us`;
   * K3 at the W4A8 decode step in INT4 and INT8, the same step over 32
     experts (32 blocks: the rate a block reaches without the others),
     the same step over 8 experts (a 34 MB stream that stays in L2 from
     call to call: the rate of a block fed from L2), with every row live
     and at K < H (INT8, gelu, bias).
 
-Each reading is held against the plain twin (K3: max abs error 0 where the
-activation is relu) and carries the profiled device ms per call, the
-event-timed ms, the live weight bytes per device second and the bound
+Each reading is held against the plain twin (K5, and K3 where the
+activation is relu: max abs error 0) and carries the profiled device ms
+per call (K3 and K5 also the kernel's alone, and K3 the device ms of the
+wrapper's quantization of x, `quantize_ms`), the event-timed ms, the live weight bytes per device second and the bound
 share. The first line is the card's name, power limit and top SM clock
 from nvidia-smi. Exits non-zero without a card or when a reading disagrees
 with its twin.
@@ -56,10 +63,10 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from tutel_tpu_torch.csrc import build  # noqa: E402
-from tutel_tpu_torch.ops import activations, fused_ffn, quant  # noqa: E402
+from tutel_tpu_torch.ops import activations, fused_ffn, quant, w8a8  # noqa: E402
 from tutel_tpu_torch.ops import grouped_gemm_quant as gq  # noqa: E402
 
-SOURCES = ("grouped_gemm_quant", "fused_ffn_w8a8")
+SOURCES = ("grouped_gemm_quant", "fused_ffn_w8a8", "grouped_gemm_w8a8")
 
 
 def emit(record):
@@ -101,8 +108,9 @@ def routing(seed, routed, e, c):
 
 
 def read(label, kernel, call, ref, weight_bytes, bound_ms, exact=False,
-         **extra):
-    """Hold one call against its twin and time it."""
+         symbol=None, host=False, **extra):
+    """Hold one call against its twin and time it; `symbol`: also the
+    device ms of that kernel alone; `host`: also `host_us`."""
     got, again = call(), call()
     torch.cuda.synchronize()
     counts = extra.pop("counts")
@@ -112,6 +120,10 @@ def read(label, kernel, call, ref, weight_bytes, bound_ms, exact=False,
         raise RuntimeError(f"{kernel} at {label}: {abs_err} / {rel_err}, "
                            f"or two calls differ")
     dev = cs.device_ms(call, None)
+    if symbol:
+        extra["kernel_device_ms"] = cs.device_ms(call, symbol)
+    if host:
+        extra["host_us"] = cs.host_us(call, calls=200)
     emit({"kernel": kernel, "shape": label, **extra,
           "max_abs_err": abs_err, "max_rel_err": rel_err,
           "device_ms": dev, "ms": cs.median_ms(call),
@@ -148,6 +160,35 @@ def k1_case(label, e, c, k, n, rows, bits=4, blocks=1, dtype=torch.bfloat16,
              tile_rows=tile, plan=plan, **base)
 
 
+def k5_case(label, e, c, k, n, rows, bits, default=False,
+            bandwidth=3.35e12):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 20)
+    w = quant.quantize(torch.randn(e, k, n, generator=g, device=dev) * 0.02,
+                       bits)
+    x = torch.randn(e, c, k, generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.tensor(rows, dtype=torch.int32, device=dev)
+    live, experts = int(counts.sum()), int((counts > 0).sum())
+    ref = w8a8.grouped_gemm_w8a8_reference(x, w, counts)
+    weights = experts * (w.values[0].numel() + 4 * n)
+    moved = weights + live * k * 2 + e * c * n * 2 + 4 * e
+    bound_ms = cs.bound(moved, 2 * live * k * n, bandwidth,
+                        cs.INT8_PEAK)["bound_ms"]
+    base = dict(exact=True, symbol="gmm_w8a8_kernel", host=True,
+                counts=counts, E=e, C=c, K=k, N=n, bits=bits,
+                live_rows=live)
+    if default:
+        read(label, "grouped_gemm_w8a8",
+             lambda: w8a8.grouped_gemm_w8a8(x, w, counts), ref, weights,
+             bound_ms, **base)
+        return
+    for tile in (8, 16):
+        plan = gq.tc_plan(e, c, live, tile)
+        read(label, "grouped_gemm_w8a8",
+             lambda: w8a8._launch(x, w, counts, plan), ref, weights,
+             bound_ms, tile_rows=tile, plan=plan, **base)
+
+
 def k3_case(label, e, c, k, h, n, rows, bits, act, bias, default=False,
             bandwidth=3.35e12):
     dev = torch.device("cuda")
@@ -176,7 +217,9 @@ def k3_case(label, e, c, k, h, n, rows, bits, act, bias, default=False,
             x, stream, counts, activation_fn=fn, routed=live)), {
             "tile_rows": fused_ffn.tile_rows_w8a8(h, e, c, live)}
     read(label, "fused_ffn_w8a8", call, ref, weights, bound_ms,
-         exact=act == "relu", counts=counts, E=e, C=c, K=k, H=h, N=n,
+         exact=act == "relu", symbol="fused_w8a8_kernel",
+         quantize_ms=cs.device_ms(lambda: quant.quantize_activations(x),
+                                  None), counts=counts, E=e, C=c, K=k, H=h, N=n,
          bits=bits, live_rows=live, **plan)
 
 
@@ -202,6 +245,8 @@ def main():
             "grouped_gemm_quant", "gmm_quant_kernel_tc", "HMMA")})
         emit({"sass": "fused_ffn_w8a8", "kernels": cs.mma_sass(
             "fused_ffn_w8a8", "fused_w8a8_kernel", "IMMA")})
+        emit({"sass": "grouped_gemm_w8a8", "kernels": cs.mma_sass(
+            "grouped_gemm_w8a8", "gmm_w8a8_kernel", "IMMA")})
     moe = routing(cs.SEED, 512, 128, 32)
     k_lt_h = np.random.default_rng(cs.SEED + 1).integers(0, 33, 64)
     lm = routing(cs.SEED + 2, 128, 32, 16)
@@ -220,6 +265,12 @@ def main():
     k1_case("wide_k", 8, 32, 14336, 4096, [32] * 8, **kw)
     torch.cuda.empty_cache()
     k1_case("lm_prefill", 32, 8192, 1024, 2048, prefill, **kw)
+    torch.cuda.empty_cache()
+    # K5 (fc1 of the W8A8 FFN as one GEMM) at chip_smoke.py's W8A8 shapes
+    for label, rows, bits in (("decode", moe, 4), ("decode_int8", moe, 8),
+                              ("all_rows", [32] * 128, 4)):
+        k5_case(label, 128, 32, 2048, 2048, rows, bits, **kw)
+    k5_case("k_lt_h", 64, 32, 1024, 4096, k_lt_h, 8, **kw)
     torch.cuda.empty_cache()
     for label, bits in (("decode", 4), ("decode_int8", 8)):
         k3_case(label, 128, 32, 2048, 2048, 2048, moe, bits, "relu", False,

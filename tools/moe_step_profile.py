@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Profile one decode chunk of the MoE server on one NVIDIA card, on the
-two-call path (K1 twice a step) and the W4A8 fused path (K3 once a step).
+two-call path (K1 twice a step), the W4A8 fused path (K3 once a step) and
+the W4A8 two-call path (K5 twice a step).
 
 Run from the root of a checkout, with no arguments:
 

@@ -1,28 +1,16 @@
 // Shared by the expert-FFN kernels K2 (fused_ffn_quant.cu), K3
 // (fused_ffn_w8a8.cu), K4 (fused_swiglu_quant.cu) and K5
 // (grouped_gemm_w8a8.cu): type conversions, the activations, the staging
-// of a row tile of x for K3, the int8 x int8 dot of K5 over four weight
-// columns per thread (whose 4 x 4 byte transpose also builds K3's mma
-// operands, gemm_tc.cuh), and the hidden split of K2/K4 (the second half
-// of this file).
-//
-// Integer dots use __dp4a, which sums four int8 x int8 products into an
-// int32 in one instruction. It wants the four K-consecutive bytes of one
-// operand in one register, but a [K, N] row-major weight keeps the bytes
-// of one column N apart, while one 32-bit load brings four adjacent
-// columns of one row. `dp4a_cols` therefore loads four rows of four
-// columns (four coalesced 32-bit loads) and transposes the 4 x 4 bytes in
-// registers with eight __byte_perm, so each column's four bytes meet the
-// activation word of those four rows: 4 rows x 4 columns x ROWS rows of
-// activations cost 8 permutes and 4 * ROWS dp4a, against 16 * ROWS
-// multiply-adds with scalar bytes.
+// of a row tile of x for K3, the int32 sum of K3's and K5's s8 mmas, and the
+// hidden split of K2/K4 (the second half of this file).
 //
 // INT4 weights are split-half packed (byte = low nibble: row p, high
-// nibble: row p + K/2). A nibble is left in the top half of its byte,
-// (w << 4) & 0xF0F0F0F0 for the low ones and w & 0xF0F0F0F0 for the high
-// ones, so each byte is 16 x the signed nibble: the dots are 16 x the true
-// sums, exactly, and an arithmetic shift by 4 at the end recovers them
-// (|sum| < 2^31 / 16 for K < 2^17). No per-nibble sign extension is needed.
+// nibble: row p + K/2). K3 and K5 leave a nibble in the top half of its
+// byte, (w << 4) & 0xF0F0F0F0 for the low ones and w & 0xF0F0F0F0 for the
+// high ones, so each byte is 16 x the signed nibble: the integer dots are
+// 16 x the true sums, exactly, and an arithmetic shift by 4 at the end
+// recovers them (|sum| < 2^31 / 16 for K < 2^17). No per-nibble sign
+// extension is needed.
 
 #pragma once
 
@@ -80,53 +68,8 @@ __device__ void stage_x(V* xs, const V* __restrict__ xe, int K, int kr, int W,
   }
 }
 
-// Four rows w[0..3] of four adjacent int8 columns each -> c[j] holds
-// column j's bytes of rows 0..3 (row i in byte i).
-__device__ __forceinline__ void transpose4(const unsigned w[4], int c[4]) {
-  const unsigned a = __byte_perm(w[0], w[1], 0x5140);   // r0c0 r1c0 r0c1 r1c1
-  const unsigned b = __byte_perm(w[2], w[3], 0x5140);   // r2c0 r3c0 r2c1 r3c1
-  const unsigned d = __byte_perm(w[0], w[1], 0x7362);   // r0c2 r1c2 r0c3 r1c3
-  const unsigned f = __byte_perm(w[2], w[3], 0x7362);   // r2c2 r3c2 r2c3 r3c3
-  c[0] = (int)__byte_perm(a, b, 0x5410);
-  c[1] = (int)__byte_perm(a, b, 0x7632);
-  c[2] = (int)__byte_perm(d, f, 0x5410);
-  c[3] = (int)__byte_perm(d, f, 0x7632);
-}
-
-// acc[r][j] += sum over 4 packed rows of column j times the activation
-// word of row r. xlo/xhi: the rows' activation words (4 consecutive int8)
-// for the low and the high nibble rows (xhi unused for INT8). For INT4 the
-// sums are 16 x the true ones (see the header comment).
-template <int BITS, int ROWS>
-__device__ __forceinline__ void dp4a_cols(const unsigned w[4], const int* xlo,
-                                          const int* xhi, int acc[][4]) {
-  int c[4];
-  if constexpr (BITS == 8) {
-    transpose4(w, c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r][j] = __dp4a(c[j], xlo[r], acc[r][j]);
-  } else {
-    unsigned v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = (w[i] << 4) & 0xF0F0F0F0u;
-    transpose4(v, c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r][j] = __dp4a(c[j], xlo[r], acc[r][j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = w[i] & 0xF0F0F0F0u;
-    transpose4(v, c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r][j] = __dp4a(c[j], xhi[r], acc[r][j]);
-  }
-}
-
-// the true integer sum of an accumulator filled by dp4a_cols
+// the true integer sum of an s8 mma accumulator (gemm_tc.cuh
+// `s8_mma_group`): at INT4 each nibble met x as 16 x its value
 template <int BITS>
 __device__ __forceinline__ int int_sum(int acc) {
   return BITS == 4 ? acc >> 4 : acc;

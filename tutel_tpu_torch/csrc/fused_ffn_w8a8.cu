@@ -36,7 +36,7 @@
 // hide the loads' latency on the one block an SM holds), else 8. A lane
 // loads 16 bytes of each of its packed rows straight into registers, one
 // load group ahead of the one it multiplies, and one 4 x 4 byte transpose
-// (ffn_common.cuh) per 4 packed rows of 4 columns makes the A registers,
+// (gemm_tc.cuh) per 4 packed rows of 4 columns makes the A registers,
 // at INT4 with each nibble kept in the top half of its byte, so the int32
 // sums are 16 x the true ones, exactly. B registers are 32-bit loads of
 // the staged int8 rows, padded against bank conflicts. Between the phases
@@ -63,69 +63,6 @@ constexpr int kHPad = 4;                       // floats after each hidden row
 
 // k-steps per load group: two at INT4 with two n-blocks, else one
 template <int BITS, int NB> constexpr int kGroupSteps = BITS == 4 && NB == 2 ? 2 : 1;
-
-// One load group of the lane's weights from k-step s on: zeros past the
-// phase's packed rows or the tile's columns.
-template <int BITS, int VEC, int G>
-__device__ __forceinline__ void load_group(
-    uint32_t (*f)[tc::k3_loads(BITS)][VEC / 4], const int8_t* wl, int s,
-    int prow, int bw, int t, bool col_ok) {
-#pragma unroll
-  for (int d = 0; d < G; ++d) {
-#pragma unroll
-    for (int l = 0; l < tc::k3_loads(BITS); ++l) {
-      const int row = (s + d) * tc::k3_step_rows(BITS) + tc::k3_load_row(t, l);
-      tc::load_weights<VEC>(wl + (size_t)row * bw, col_ok && row < prow, f[d][l]);
-    }
-  }
-}
-
-// The mmas of one load group: acc[nb][i] += weights . int8 rows.
-template <int BITS, int VEC, int NB, int G>
-__device__ __forceinline__ void mma_group(
-    uint32_t (*f)[tc::k3_loads(BITS)][VEC / 4], const int8_t* const* xrow,
-    int s, int nsteps, int kr, int t, int (*acc)[VEC / 2][4]) {
-#pragma unroll
-  for (int d = 0; d < G; ++d) {
-    if (s + d >= nsteps) break;
-    const int p0 = (s + d) * tc::k3_step_rows(BITS);
-    uint32_t b[NB][2];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        b[nb][r] = *reinterpret_cast<const uint32_t*>(
-            xrow[nb] + p0 + tc::k3_b_offset(BITS, t, r, kr));
-#pragma unroll
-    for (int wi = 0; wi < VEC / 4; ++wi) {       // 4 columns: mmas 2wi, 2wi + 1
-      unsigned v[4];
-      int lo[4], hi[4];
-      if constexpr (BITS == 4) {
-#pragma unroll
-        for (int l = 0; l < 4; ++l) v[l] = (f[d][l][wi] << 4) & 0xF0F0F0F0u;
-        transpose4(v, lo);
-#pragma unroll
-        for (int l = 0; l < 4; ++l) v[l] = f[d][l][wi] & 0xF0F0F0F0u;
-        transpose4(v, hi);
-      } else {
-#pragma unroll
-        for (int l = 0; l < 4; ++l) v[l] = f[d][l][wi];
-        transpose4(v, lo);
-#pragma unroll
-        for (int l = 0; l < 4; ++l) v[l] = f[d][4 + l][wi];
-        transpose4(v, hi);
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const uint32_t a[4] = {(uint32_t)lo[2 * m], (uint32_t)lo[2 * m + 1],
-                               (uint32_t)hi[2 * m], (uint32_t)hi[2 * m + 1]};
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-          tc::mma_s8(acc[nb][2 * wi + m], a, b[nb][0], b[nb][1]);
-      }
-    }
-  }
-}
 
 // One integer phase over stream tiles [t_begin, t_end): the int8 rows src
 // [rows][W] (`xs` bytes apart) in shared memory times each tile's first
@@ -171,12 +108,12 @@ __device__ void mma_phase(const int8_t* src, int xs, const float* row_scale,
         for (int r = 0; r < 4; ++r) acc[nb][i][r] = 0;
     uint32_t fa[G][tc::k3_loads(BITS)][VEC / 4];
     uint32_t fb[G][tc::k3_loads(BITS)][VEC / 4];
-    load_group<BITS, VEC, G>(fa, wl, 0, prow, bw, t, col_ok);
+    tc::s8_load_group<BITS, VEC, G>(fa, wl, 0, prow, bw, t, col_ok);
     for (int s = 0; s < nsteps; s += 2 * G) {
-      load_group<BITS, VEC, G>(fb, wl, s + G, prow, bw, t, col_ok);
-      mma_group<BITS, VEC, NB, G>(fa, xrow, s, nsteps, kr, t, acc);
-      load_group<BITS, VEC, G>(fa, wl, s + 2 * G, prow, bw, t, col_ok);
-      mma_group<BITS, VEC, NB, G>(fb, xrow, s + G, nsteps, kr, t, acc);
+      tc::s8_load_group<BITS, VEC, G>(fb, wl, s + G, prow, bw, t, col_ok);
+      tc::s8_mma_group<BITS, VEC, NB, G>(fa, xrow, s, nsteps, kr, t, acc);
+      tc::s8_load_group<BITS, VEC, G>(fa, wl, s + 2 * G, prow, bw, t, col_ok);
+      tc::s8_mma_group<BITS, VEC, NB, G>(fb, xrow, s + G, nsteps, kr, t, acc);
     }
     // d0, d1: column a_col(i, 0) at rows 2t, 2t + 1; d2, d3: a_col(i, 1)
     if (col_ok) {

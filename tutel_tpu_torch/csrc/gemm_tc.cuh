@@ -1,8 +1,9 @@
-// The tensor-core fragments of K1 (grouped_gemm_quant.cu, bfloat16 x) and
-// K3 (fused_ffn_w8a8.cu): which packed row and column of a quantized weight
-// each lane loads, and how it becomes the A operand of mma.sync.
+// The tensor-core fragments of K1 (grouped_gemm_quant.cu, bfloat16 x), K3
+// (fused_ffn_w8a8.cu) and K5 (grouped_gemm_w8a8.cu): which packed row and
+// column of a quantized weight each lane loads, and how it becomes the A
+// operand of mma.sync.
 //
-// Both kernels put the weights in the M operand ("swap AB"): at decode an
+// All three put the weights in the M operand ("swap AB"): at decode an
 // expert holds a few rows, so the weight columns take the mma's M = 16 and
 // the tile's rows its N = 8; D[m][n] is column m of the weight times row n
 // of x. A lane (g = lane / 4, t = lane % 4) loads VEC adjacent bytes (16,
@@ -27,7 +28,8 @@
 //   (x[2q], x[2q + 1]) at INT8 (`pair_k`); B register r of lane t is pair
 //   t + 4r, one 32-bit load shared by every mma of the k-step.
 //
-// K3, m16n8k32 s8 (A register: four int8 of one column at k 4t .. 4t + 3):
+// K3 and K5, m16n8k32 s8 (A register: four int8 of one column at k 4t ..
+// 4t + 3):
 //   INT4: a k-step is 16 packed rows. k 0..15 are the low nibbles of its
 //     rows, k 16..31 the high nibbles; lane t loads rows 4t .. 4t + 3, and
 //     `transpose4` (ffn_common.cuh) of their nibbles, each kept in the top
@@ -37,14 +39,15 @@
 //     and 16 + 4t .. 16 + 4t + 3 (a2/a3).
 //   B register r of lane t: the int8 x (or hidden) at k 4t + 16r .. + 3 of
 //   the k-step, one 32-bit load; at INT4 the high nibbles meet the upper
-//   half of the row, kr further on.
+//   half of the row, kr further on (K5 stages a chunk of k-steps' low and
+//   high halves 16 * chunk bytes apart, and passes that as kr).
 //
 // D (both): d0, d1 are column a_col(i, 0) at rows 2t, 2t + 1 of the n-block,
 // d2, d3 column a_col(i, 1) at the same rows.
 //
-// ops/grouped_gemm_quant.py (`tc_*`) and ops/fused_ffn.py (`w8a8_*`) mirror
-// these functions; the CPU tests assemble the products lane by lane from
-// them.
+// ops/grouped_gemm_quant.py (`tc_*`), ops/fused_ffn.py (`w8a8_*`) and
+// ops/w8a8.py (`k5_*`) mirror these functions; the CPU tests assemble the
+// products lane by lane from them.
 
 #pragma once
 
@@ -76,6 +79,17 @@ __host__ __device__ constexpr int k3_load_row(int t, int l) {
 // column (within the warp's strip) of mma i's M row g + 8h
 __host__ __device__ constexpr int a_col(int vec, int g, int i, int h) {
   return vec * g + 2 * i + h;
+}
+
+// K1 and K5: the 4 warps of a block split an expert's k-steps in four, and
+// each stages the x of its own k-steps in chunks of at most 32 k-steps: its
+// share rounded up to whole loop turns of 4 k-steps, so shared memory does
+// not grow with K (grouped_gemm_quant.py `warp_chunk_steps` mirrors it).
+constexpr int kSplitWarps = 4;
+__host__ __device__ inline int chunk_steps(int nsteps) {
+  const int per_warp = (nsteps + kSplitWarps - 1) / kSplitWarps;
+  const int steps = (per_warp + 3) / 4 * 4;
+  return steps < 32 ? steps : 32;
 }
 
 // the staged pair (within the k-step's 8) of K1's B register r
@@ -152,6 +166,87 @@ __device__ __forceinline__ void load_weights(const int8_t* p, bool ok,
     w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
   } else {
     w[0] = ok ? __ldg(reinterpret_cast<const unsigned*>(p)) : 0u;
+  }
+}
+
+// Four rows w[0..3] of four adjacent int8 columns each -> c[j] holds
+// column j's bytes of rows 0..3 (row i in byte i): the A registers of the
+// s8 mma from four packed rows a lane loaded.
+__device__ __forceinline__ void transpose4(const unsigned w[4], int c[4]) {
+  const unsigned a = __byte_perm(w[0], w[1], 0x5140);   // r0c0 r1c0 r0c1 r1c1
+  const unsigned b = __byte_perm(w[2], w[3], 0x5140);   // r2c0 r3c0 r2c1 r3c1
+  const unsigned d = __byte_perm(w[0], w[1], 0x7362);   // r0c2 r1c2 r0c3 r1c3
+  const unsigned f = __byte_perm(w[2], w[3], 0x7362);   // r2c2 r3c2 r2c3 r3c3
+  c[0] = (int)__byte_perm(a, b, 0x5410);
+  c[1] = (int)__byte_perm(a, b, 0x7632);
+  c[2] = (int)__byte_perm(d, f, 0x5410);
+  c[3] = (int)__byte_perm(d, f, 0x7632);
+}
+
+// K3's and K5's s8 body. One load group of the lane's weights: G k-steps
+// from k-step s on, rows `row_len` bytes apart; zeros at packed rows past
+// `prow` or columns past the tile's.
+template <int BITS, int VEC, int G>
+__device__ __forceinline__ void s8_load_group(
+    uint32_t (*f)[k3_loads(BITS)][VEC / 4], const int8_t* wl, int s,
+    int prow, int row_len, int t, bool col_ok) {
+#pragma unroll
+  for (int d = 0; d < G; ++d) {
+#pragma unroll
+    for (int l = 0; l < k3_loads(BITS); ++l) {
+      const int row = (s + d) * k3_step_rows(BITS) + k3_load_row(t, l);
+      load_weights<VEC>(wl + (size_t)row * row_len, col_ok && row < prow, f[d][l]);
+    }
+  }
+}
+
+// The mmas of one load group: acc[nb][i] += weights . int8 rows, n-block
+// nb's B column g from the staged row xrow[nb]; k-steps at or past nsteps
+// are not multiplied. At INT4 each nibble is kept in the top half of its
+// byte (16 x its value; `int_sum` of ffn_common.cuh divides the sum).
+template <int BITS, int VEC, int NB, int G>
+__device__ __forceinline__ void s8_mma_group(
+    uint32_t (*f)[k3_loads(BITS)][VEC / 4], const int8_t* const* xrow,
+    int s, int nsteps, int kr, int t, int (*acc)[VEC / 2][4]) {
+#pragma unroll
+  for (int d = 0; d < G; ++d) {
+    if (s + d >= nsteps) break;
+    const int p0 = (s + d) * k3_step_rows(BITS);
+    uint32_t b[NB][2];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        b[nb][r] = *reinterpret_cast<const uint32_t*>(
+            xrow[nb] + p0 + k3_b_offset(BITS, t, r, kr));
+#pragma unroll
+    for (int wi = 0; wi < VEC / 4; ++wi) {       // 4 columns: mmas 2wi, 2wi + 1
+      unsigned v[4];
+      int lo[4], hi[4];
+      if constexpr (BITS == 4) {
+#pragma unroll
+        for (int l = 0; l < 4; ++l) v[l] = (f[d][l][wi] << 4) & 0xF0F0F0F0u;
+        transpose4(v, lo);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) v[l] = f[d][l][wi] & 0xF0F0F0F0u;
+        transpose4(v, hi);
+      } else {
+#pragma unroll
+        for (int l = 0; l < 4; ++l) v[l] = f[d][l][wi];
+        transpose4(v, lo);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) v[l] = f[d][4 + l][wi];
+        transpose4(v, hi);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint32_t a[4] = {(uint32_t)lo[2 * m], (uint32_t)lo[2 * m + 1],
+                               (uint32_t)hi[2 * m], (uint32_t)hi[2 * m + 1]};
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mma_s8(acc[nb][2 * wi + m], a, b[nb][0], b[nb][1]);
+      }
+    }
   }
 }
 

@@ -27,7 +27,7 @@
 //   loads straight into registers, two k-steps per group, one group ahead
 //   of the one it multiplies. Each warp stages the tile's x rows for its
 //   k-steps in shared memory as the bf16 pairs the k order needs (one
-//   32-bit load per B register), up to kChunkSteps k-steps at a time, so
+//   32-bit load per B register), up to 32 k-steps at a time, so
 //   shared memory does not grow with K. A tile holds 8 or 16 rows (one or two n-blocks of the mma):
 //   the launch's tile (the wrapper's `tc_plan`) sets the registers and
 //   shared memory, and a tile with at most 8 live rows runs one n-block.
@@ -158,17 +158,8 @@ constexpr int kTcWarps = 4;                    // split an expert's k-steps
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kDepth = 2;                      // k-steps per load group
 constexpr int kPairPad = 4;                    // words after each staged row
-constexpr int kChunkSteps = 32;                // most k-steps a warp stages
-
-// k-steps of x pairs a warp stages at a time: its share of the k-steps
-// rounded up to whole loop turns (2 * kDepth), at most kChunkSteps
-// (grouped_gemm_quant.py `tc_chunk_steps` mirrors it).
-__host__ __device__ inline int tc_chunk_steps(int nsteps) {
-  const int per_warp = (nsteps + kTcWarps - 1) / kTcWarps;
-  const int turn = 2 * kDepth;
-  const int steps = (per_warp + turn - 1) / turn * turn;
-  return steps < kChunkSteps ? steps : kChunkSteps;
-}
+static_assert(kTcWarps == tc::kSplitWarps && 4 % (2 * kDepth) == 0,
+              "tc::chunk_steps deals k-steps to 4 warps in loop turns of 4");
 
 using bf16 = __nv_bfloat16;
 
@@ -365,7 +356,7 @@ __host__ __device__ inline size_t tc_smem(int bits, int vec, int rows, int K) {
   const int kp = bits == 4 ? K / 2 : K;
   const int nsteps = (kp + tc::k1_step_rows(bits) - 1) / tc::k1_step_rows(bits);
   const size_t pairs =
-      (size_t)kTcWarps * rows * (8 * tc_chunk_steps(nsteps) + kPairPad) * 4;
+      (size_t)kTcWarps * rows * (8 * tc::chunk_steps(nsteps) + kPairPad) * 4;
   const size_t red = (size_t)kTcWarps * rows * (8 * vec + 4) * 4;
   return pairs > red ? pairs : red;
 }
@@ -388,7 +379,7 @@ gmm_quant_kernel_tc(const bf16* __restrict__ x, const int8_t* __restrict__ w,
   const int kp = BITS == 4 ? K / 2 : K;
   const int kb = kp / blocks;
   const int nsteps = (kp + tc::k1_step_rows(BITS) - 1) / tc::k1_step_rows(BITS);
-  const int chunk = tc_chunk_steps(nsteps);
+  const int chunk = tc::chunk_steps(nsteps);
   const int count = min(max(counts[e], 0), C);
   const bf16* xe = x + (size_t)e * C * K;
   const int8_t* we = w + (size_t)e * kp * N;

@@ -101,14 +101,18 @@ TC_CHUNK_STEPS = 32
 TC_PAIR_PAD = 4
 
 
-def tc_chunk_steps(bits, k):
-    """k-steps of x pairs a warp stages at a time: its share of the
-    k-steps rounded up to whole loop turns (4 k-steps), at most
-    TC_CHUNK_STEPS."""
-    kp = k // 2 if bits == 4 else k
-    nsteps = -(-kp // tc_step_rows(bits))
+def warp_chunk_steps(nsteps):
+    """k-steps a warp of K1 or K5 stages at a time (gemm_tc.cuh
+    `chunk_steps`): its share of the nsteps k-steps rounded up to whole
+    loop turns (4 k-steps), at most TC_CHUNK_STEPS."""
     per_warp = -(-nsteps // TC_WARPS)
     return min(TC_CHUNK_STEPS, -(-per_warp // 4) * 4)
+
+
+def tc_chunk_steps(bits, k):
+    """k-steps of x pairs a warp of K1 stages at a time."""
+    kp = k // 2 if bits == 4 else k
+    return warp_chunk_steps(-(-kp // tc_step_rows(bits)))
 
 
 def tc_warp_chunks(nsteps, chunk, warp):

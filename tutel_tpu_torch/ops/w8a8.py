@@ -2,18 +2,25 @@
 (W8A8, W4A8), and the two-layer expert FFN built on it
 (counterpart: tutel_tpu/ops/w8a8_pallas.py:38-207).
 
-Activations are quantized per row outside the kernels
-(`quantize_activations`: symmetric absmax -> int8 and an f32 row scale,
-bit for bit the JAX function). The products are int8 x int8 summed in
-int32, which is exact, and the result is rescaled by the row scale, then
-the weight's column scale: out = (float)acc * sx * sw.
+Activations are quantized per row (`quantize_activations`: symmetric
+absmax -> int8 and an f32 row scale, bit for bit the JAX function). The
+products are int8 x int8 summed in int32, which is exact, and the result is
+rescaled by the row scale, then the weight's column scale:
+out = (float)acc * sx * sw.
 
 `grouped_gemm_w8a8` launches the CUDA kernel K5 (`csrc/grouped_gemm_w8a8.cu`)
 for CUDA tensors and runs its plain PyTorch twin,
-`grouped_gemm_w8a8_reference`, for CPU tensors. Rows at or past counts[e]
-are zeros (the JAX kernel zeroes whole 256-row blocks past the count and
-computes the rest). INT4 weights with blocks == 1 unpack in the kernel;
-block-packed INT4 unpacks outside and runs as INT8, as in JAX.
+`grouped_gemm_w8a8_reference`, for CPU tensors. K5 takes x as it is and
+quantizes the live rows itself, so a call is one launch. Rows at or past
+counts[e] are zeros (the JAX kernel zeroes whole 256-row blocks past the
+count and computes the rest). INT4 weights with blocks == 1 unpack in the
+kernel; block-packed INT4 unpacks outside and runs as INT8, as in JAX.
+
+K5 runs K1's grid (`grouped_gemm_quant.tc_plan`, from the routed rows)
+over K3's int8 tensor-core fragments (`fused_ffn.w8a8_*`); the `k5_*`
+functions below are its k-steps, its staging of the quantized x and its
+shared memory, mirrored by the kernel, so that the CPU tests can assemble
+its products lane by lane.
 
 `w8a8_ffn` takes the fused kernel K3 (`ops.fused_ffn.fused_ffn_w8a8`)
 when the params carry a stream covering the output width and runs K5
@@ -26,8 +33,8 @@ import torch
 
 from ..csrc import build
 from .fused_ffn import (DTYPE_CODES, check_cuda, counts_i32, fused_ffn_w8a8,
-                        live_rows)
-from .grouped_gemm_quant import two_call_ffn
+                        live_rows, w8a8_step_rows)
+from .grouped_gemm_quant import tc_plan, two_call_ffn, warp_chunk_steps
 from .quant import QuantizedWeight, int_bmm, quantize_activations, unpack_int4
 
 
@@ -52,14 +59,63 @@ def grouped_gemm_w8a8_reference(x, qw: QuantizedWeight, counts=None):
     return out.to(x.dtype)
 
 
-def grouped_gemm_w8a8(x, qw: QuantizedWeight, counts=None):
+# K5's body (csrc/grouped_gemm_w8a8.cu): bytes after each staged int8 row,
+# k-steps of a lane's load group (a warp loads one group ahead of the one
+# it multiplies)
+K5_X_PAD = 16
+K5_DEPTH = 1
+
+
+def k5_steps(bits, k):
+    """k-steps (32 k of an m16n8k32 mma) over the packed rows of K."""
+    return -(-(k // 2 if bits == 4 else k) // w8a8_step_rows(bits))
+
+
+def k5_chunk_steps(bits, k):
+    """k-steps of x a warp quantizes into shared memory at a time."""
+    return warp_chunk_steps(k5_steps(bits, k))
+
+
+def k5_smem(bits, vec, rows, k):
+    """Shared memory of a block of `rows`-row tiles: each warp's staged int8
+    x chunk, or the warps' int32 partials, whichever is larger; it does not
+    grow with K."""
+    xs = 4 * rows * (32 * k5_chunk_steps(bits, k) + K5_X_PAD)
+    return max(xs, 4 * rows * (8 * vec + 4) * 4)
+
+
+def k5_stage_words(bits, c, n, chunk, k):
+    """[(x index, staged byte)] of the 4-byte words a warp stages for its
+    k-steps [c, c + n) (a chunk of at most `chunk`), 8 n a row, each the
+    int8 x at x index .. + 3: at INT4 the x of the low nibbles of packed
+    rows 16c .. from byte 0, that of the high nibbles (K/2 further on) from
+    byte 16 chunk; at INT8 x[32c ..) from byte 0. x index None: past the
+    packed rows (INT4) or K (INT8), staged as zeros."""
+    kp = k // 2 if bits == 4 else k
+    out = []
+    for j in range(8 * n):
+        if bits == 4:
+            hi = j >= 4 * n
+            p = 16 * c + 4 * (j - 4 * n if hi else j)
+            src = (kp + p if hi else p) if p < kp else None
+            out.append((src, p - 16 * c + (16 * chunk if hi else 0)))
+        else:
+            src = 32 * c + 4 * j
+            out.append((src if src < k else None, 4 * j))
+    return out
+
+
+def grouped_gemm_w8a8(x, qw: QuantizedWeight, counts=None, *, routed=None):
     """out[e] = x[e] @ dequant(qw[e]) with the contraction in int8.
 
-    x: [E, C, K] float32/bfloat16 (quantized per row here); qw: INT8 or
-    INT4 QuantizedWeight of logical shape [E, K, N]; counts: [E] live rows
-    per expert (None = all C). Returns [E, C, N] in x.dtype; rows >=
-    counts[e] are zeros. CPU tensors run the plain twin; CUDA tensors run
-    kernel K5, and anything the kernel does not take raises.
+    x: [E, C, K] float32/bfloat16 (quantized per row); qw: INT8 or INT4
+    QuantizedWeight of logical shape [E, K, N]; counts: [E] live rows per
+    expert (None = all C). Returns [E, C, N] in x.dtype; rows >= counts[e]
+    are zeros. CPU tensors run the plain twin; CUDA tensors run kernel K5,
+    and anything the kernel does not take raises. `routed`: the rows
+    routed to the experts, known on the host (the MoE layer's tokens x
+    top-k; None: all E x C), from which `tc_plan` picks the row tile and
+    groups.
     """
     e, c, k = x.shape
     ew, kw, n = qw.shape
@@ -68,6 +124,19 @@ def grouped_gemm_w8a8(x, qw: QuantizedWeight, counts=None):
                          f"{qw.shape}")
     if x.device.type == "cpu":
         return grouped_gemm_w8a8_reference(x, qw, counts)
+    return _launch(x, qw, counts, tc_plan(e, c, routed))
+
+
+def _launch(x, qw: QuantizedWeight, counts, plan):
+    """Kernel K5 on CUDA tensors with the (tile rows, groups) given;
+    `grouped_gemm_w8a8` passes `tc_plan`'s, and tools/gemm_tc_sweep.py
+    compares the tiles through here."""
+    rows, groups = plan
+    if rows not in (8, 16) or groups < 1:
+        raise ValueError(f"K5 takes tile_rows 8 or 16 and groups >= 1, got "
+                         f"{plan}")
+    e, c, k = x.shape
+    n = qw.shape[2]
     if x.device.type != "cuda":
         raise ValueError(f"grouped_gemm_w8a8 runs on cpu or cuda, not "
                          f"{x.device}")
@@ -82,7 +151,6 @@ def grouped_gemm_w8a8(x, qw: QuantizedWeight, counts=None):
         raise ValueError(f"K5 needs N % 4 == 0, K % 4 == 0 (K % 8 for "
                          f"INT4) and scales [E, 1, N]; got N={n}, K={k}, "
                          f"scales {tuple(qw.scales.shape)}")
-    xq, sx = quantize_activations(x)
     cnt = counts_i32(counts, e, c, x.device)
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -90,9 +158,9 @@ def grouped_gemm_w8a8(x, qw: QuantizedWeight, counts=None):
     lib = build.load("grouped_gemm_w8a8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.grouped_gemm_w8a8_launch(
-        xq.data_ptr(), sx.data_ptr(), vals.data_ptr(), qw.scales.data_ptr(),
-        cnt.data_ptr(), out.data_ptr(), e, c, k, n, bits,
-        DTYPE_CODES[x.dtype], x.device.index or 0, stream)
+        x.data_ptr(), vals.data_ptr(), qw.scales.data_ptr(), cnt.data_ptr(),
+        out.data_ptr(), e, c, k, n, bits, DTYPE_CODES[x.dtype], rows, groups,
+        x.device.index or 0, stream)
     build.check(lib, rc, "grouped_gemm_w8a8")
     grouped_gemm_w8a8.launches += 1
     return out
@@ -113,4 +181,4 @@ def w8a8_ffn(x, params, ctx, activation_fn, output_dim):
                              routed=getattr(ctx, "routed", None))
         return out[..., :output_dim]
     return two_call_ffn(grouped_gemm_w8a8, x, params, counts, activation_fn,
-                        output_dim)
+                        output_dim, routed=getattr(ctx, "routed", None))
