@@ -369,7 +369,8 @@ K1_DESIGN = ("tensor cores: mma.sync m16n8k16 bf16, the weights as M, "
 K3_DESIGN = ("tensor cores: mma.sync m16n8k32 s8, the weights as M, one "
              "block per (expert, row tile), register double buffer")
 K5_DESIGN = ("tensor cores: mma.sync m16n8k32 s8, the weights as M, K1's "
-             "grid, x quantized per row inside the kernel (one launch)")
+             "grid, x quantized per row inside the kernel (one launch), "
+             "once for up to 4 strips a block")
 
 
 def timed_gemm(record, kernel, symbol, plain, bmm, bounds):
@@ -506,7 +507,8 @@ def check_w8a8_kernels(shape, bandwidth):
              + e * c * h * 2 + 4 * e)
     out.append(timed_gemm(
         {"name": "grouped_gemm_w8a8", **base, "N": h,
-         "plan": gq.tc_plan(e, c, live_rows), "design": K5_DESIGN,
+         "plan": w8a8.k5_plan(e, c, k, h, bits, fused_ffn.sm_count(0),
+                              live_rows), "design": K5_DESIGN,
          "max_abs_err": abs_err, "max_rel_err": rel_err,
          "bitwise_repeat": True},
         k5, "gmm_w8a8_kernel",

@@ -802,14 +802,17 @@ def test_k5_reads_each_weight_byte_once(bits, k, vec):
 
 
 @pytest.mark.parametrize("e,c,routed,plan", [
-    (128, 32, 0, (8, 1)),           # nothing routed
-    (128, 32, None, (16, 2)),       # every row may be live
-    (128, 32, 512, (8, 1)),         # the W4A8 decode step: 4 rows an expert
+    (128, 32, 0, (8, 1, 1)),        # nothing routed
+    (128, 32, None, (16, 2, 4)),    # every row may be live: 4 strips a block
+    (128, 32, 512, (8, 1, 1)),      # the W4A8 decode step: 4 rows an expert
 ])
 def test_k5_plan_from_routed(e, c, routed, plan, monkeypatch):
-    """K5 takes K1's plan from the routed rows, and the W8A8 two-call FFN
-    passes the MoE layer's routed rows to both of its K5 calls."""
-    assert tgp.tc_plan(e, c, routed) == plan
+    """K5 takes K1's tile and groups from the routed rows, and 4 strips a
+    block where its tiles are 16 rows and x fits one chunk a warp (on an
+    H100's 132 SMs); the W8A8 two-call FFN passes the MoE layer's routed
+    rows to both of its K5 calls."""
+    assert w8a8.k5_plan(e, c, 2048, 2048, 4, 132, routed) == plan
+    assert tgp.tc_plan(e, c, routed) == plan[:2]
     seen = []
 
     def spy(x, qw, counts=None, *, routed=None):
@@ -828,6 +831,36 @@ def test_k5_plan_from_routed(e, c, routed, plan, monkeypatch):
     assert out.shape == (4, 8, 64) and seen == [routed, routed]
 
 
+@pytest.mark.parametrize("bits,k,strips", [
+    (4, 2048, 4), (4, 4096, 4),     # a warp's x in one chunk: staged once
+    (4, 4112, 1), (4, 14336, 1),    # several chunks a warp: one strip
+    (8, 4096, 4), (8, 4128, 1),
+])
+def test_k5_plan_takes_strips_where_x_is_staged_once(bits, k, strips):
+    """Strips a block only where x is staged once and 16-row tiles are
+    expected; pinned strips pass through."""
+    assert w8a8.k5_plan(128, 32, k, 2048, bits, 132) == (16, 2, strips)
+    assert w8a8.k5_plan(128, 32, k, 2048, bits, 132, 512) == (8, 1, 1)
+    assert w8a8.k5_plan(128, 32, k, 2048, bits, 132, strips=2)[2] == 2
+
+
+@pytest.mark.parametrize("e,n,routed,strips", [
+    (128, 2048, None, 4),           # 2 groups x 16 strips x 128: 1024 at 4
+    (64, 4096, 990, 2),             # K < H: 1 group x 32 strips x 64
+    (64, 4096, None, 4),
+    (8, 640, None, 1),              # too few blocks to share the strips
+    (128, 200, None, 2),            # 7 strips of 32 columns (N % 16 != 0)
+])
+def test_k5_plan_keeps_two_waves_of_blocks(e, n, routed, strips):
+    """The most strips a block (up to 4) whose blocks still fill two waves
+    of 3 blocks on each of 132 SMs."""
+    rows, groups, got = w8a8.k5_plan(e, 32, 1024, n, 8, 132, routed)
+    assert rows == 16 and got == strips
+    columns = -(-n // (128 if n % 16 == 0 else 32))
+    blocks = groups * e * -(-columns // got)
+    assert got == 1 or blocks >= 2 * 3 * 132
+
+
 @pytest.mark.parametrize("k", [768, 2048, 8192, 14336])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_k5_smem_does_not_grow_with_k(bits, k):
@@ -839,7 +872,8 @@ def test_k5_smem_does_not_grow_with_k(bits, k):
         for vec in (4, 16):
             got = w8a8.k5_smem(bits, vec, rows, k)
             assert got <= 4 * rows * (32 * 32 + w8a8.K5_X_PAD)
-            assert got <= fused_ffn.SMEM_BYTES
+            # several strips a block: the partials beside the staged x
+            assert w8a8.k5_smem(bits, vec, rows, k, 4) <= fused_ffn.SMEM_BYTES
     assert w8a8.k5_smem(bits, 16, 16, 14336) == 66560
     words = (32 * w8a8.k5_chunk_steps(bits, k) + w8a8.K5_X_PAD) // 4
     banks = {(words * g + t) % 32 for g in range(8) for t in range(4)}

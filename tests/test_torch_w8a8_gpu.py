@@ -138,6 +138,24 @@ def test_grouped_gemm_w8a8_tensor_cores_equal_twin(cuda, dtype, bits, blocks,
     assert _dead_rows_zero(got, counts)
 
 
+@pytest.mark.parametrize("k", [768, 14336])
+@pytest.mark.parametrize("strips", [1, 2, 3])
+def test_grouped_gemm_w8a8_strips_per_block_equal_twin(cuda, strips, k):
+    """A block walking 1, 2 or 3 strips of columns (the last group of
+    strips partial at N = 640), with x quantized once for all of them
+    (K = 768) or again each chunk (K = 14336), bit for bit the twin."""
+    g = torch.Generator(device=cuda).manual_seed(strips + k)
+    e, c, n = len(W8A8_COUNTS), W8A8_COUNTS[-1], 640
+    x = torch.randn(e, c, k, generator=g, device=cuda).to(torch.bfloat16)
+    qw = quant.quantize(torch.randn(e, k, n, generator=g, device=cuda) * 0.05,
+                        4)
+    counts = torch.tensor(W8A8_COUNTS, dtype=torch.int32, device=cuda)
+    ref = w8a8.grouped_gemm_w8a8_reference(x, qw, counts)
+    for rows, groups in ((16, 2), (8, 1)):
+        got = w8a8._launch(x, qw, counts, (rows, groups, strips))
+        assert torch.equal(got, ref), (rows, groups)
+
+
 def test_grouped_gemm_w8a8_library_runs_on_tensor_cores(cuda):
     """Every instance of K5's kernel holds IMMA (int8 mma.sync), read from
     the SASS of the built library with cuobjdump."""

@@ -25,8 +25,9 @@ one JSON line per reading:
     `_launch`); and in float32 (the CUDA-core body) at the MoE decode step;
   * K5 at `chip_smoke.py`'s four W8A8 shapes (the MoE decode step in INT4
     and INT8, every row live, and K < H in INT8), each with the row tile
-    the wrapper picks and with the other one, its whole call's device ms
-    and the kernel's alone (`kernel_device_ms`) and `host_us`;
+    the wrapper picks and with the other one (`w8a8.k5_plan`), its whole
+    call's device ms and the kernel's alone (`kernel_device_ms`) and
+    `host_us`;
   * K3 at the W4A8 decode step in INT4 and INT8, the same step over 32
     experts (32 blocks: the rate a block reaches without the others),
     the same step over 8 experts (a 34 MB stream that stays in L2 from
@@ -183,7 +184,8 @@ def k5_case(label, e, c, k, n, rows, bits, default=False,
              bound_ms, **base)
         return
     for tile in (8, 16):
-        plan = gq.tc_plan(e, c, live, tile)
+        plan = w8a8.k5_plan(e, c, k, n, bits, fused_ffn.sm_count(0), live,
+                            tile)
         read(label, "grouped_gemm_w8a8",
              lambda: w8a8._launch(x, w, counts, plan), ref, weights,
              bound_ms, tile_rows=tile, plan=plan, **base)

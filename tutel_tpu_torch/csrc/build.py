@@ -46,9 +46,9 @@ SIGNATURES = {
     "fused_swiglu_quant": ("fused_swiglu_quant_launch",
                            [_P] * 6 + [_I] * 14 + [_P]),
     # x, w, scales, counts, out; E, C, K, N, bits, dtype, tile_rows,
-    # groups, device; stream
+    # groups, strips, device; stream
     "grouped_gemm_w8a8": ("grouped_gemm_w8a8_launch",
-                          [_P] * 5 + [_I] * 9 + [_P]),
+                          [_P] * 5 + [_I] * 10 + [_P]),
     # one launch record (ops/kv_write.py, ops/decode_attn.py _RECORD)
     "kv_write": ("kv_write_launch", [ctypes.c_char_p]),
     "decode_attn": ("decode_attn_launch", [ctypes.c_char_p]),

@@ -45,6 +45,12 @@
 // conflicts. The four warps' int32 partials meet in shared memory; the
 // epilogue rescales and rounds them. Experts with no rows read no weights,
 // and rows at or past counts[e] are written as zeros.
+//
+// Each block would quantize the same rows as the other strips' blocks of
+// its expert. Where the tiles hold 16 rows and each warp's x fits one
+// chunk, a block therefore takes up to 4 strips (the wrapper's plan,
+// `w8a8.k5_plan`, keeps two waves of blocks) and quantizes its rows once
+// for all of them; the partials then sit beside the staged x.
 
 #include "ffn_common.cuh"
 #include "gemm_tc.cuh"
@@ -61,14 +67,18 @@ constexpr int kXPad = 16;                      // bytes after each staged row
 constexpr int kDepth = 1;
 
 // Shared memory of a block of `rows`-row tiles: each warp's staged int8 x
-// chunk, or the warps' int32 partials, whichever is larger (w8a8.py
-// `k5_smem` mirrors it).
-__host__ __device__ inline size_t k5_smem(int bits, int vec, int rows, int K) {
+// chunk, and the warps' int32 partials after it, or over it where the
+// block takes one strip (w8a8.py `k5_smem` mirrors it).
+__host__ __device__ inline size_t k5_xs_bytes(int bits, int rows, int K) {
   const int kp = bits == 4 ? K / 2 : K;
   const int nsteps = (kp + tc::k3_step_rows(bits) - 1) / tc::k3_step_rows(bits);
-  const size_t xs = (size_t)kWarps * rows * (32 * tc::chunk_steps(nsteps) + kXPad);
+  return (size_t)kWarps * rows * (32 * tc::chunk_steps(nsteps) + kXPad);
+}
+__host__ __device__ inline size_t k5_smem(int bits, int vec, int rows, int K,
+                                          int strips) {
+  const size_t xs = k5_xs_bytes(bits, rows, K);
   const size_t red = (size_t)kWarps * rows * (8 * vec + 4) * 4;
-  return xs > red ? xs : red;
+  return strips > 1 ? xs + red : xs > red ? xs : red;
 }
 
 // Four values of x from p on as float: one 16-byte (float32) or 8-byte
@@ -188,67 +198,19 @@ __device__ void stage_chunk(int8_t* xs, const T* __restrict__ x,
   }
 }
 
-// One tile of NB n-blocks: rows [0, live) of x / out (offset by the caller).
-// Warp w takes k-steps [w * nsteps / 4, (w + 1) * nsteps / 4) in chunks of
-// `chunk` (`tc_warp_chunks`), quantizing each chunk's x into its own region
-// of shared memory (TILE rows of `stride` bytes) before its mmas.
-template <typename T, int BITS, int VEC, int NB, int TILE>
-__device__ void k5_tile(const T* __restrict__ x, const int8_t* __restrict__ w,
-                        const float* __restrict__ sw, T* __restrict__ out,
-                        int live, int K, int N, int kp, int nsteps, int chunk,
-                        int c0, bool vec, int8_t* smem, float* scale) {
+// The warps' partials of one strip meet in `red` [warp][row][column] (d0,
+// d1: column a_col(i, 0) at rows 2t, 2t + 1; d2, d3: column a_col(i, 1)),
+// then the exact sum becomes (float)sum * sx * sw, two adjacent columns a
+// thread.
+template <typename T, int BITS, int VEC, int NB>
+__device__ void k5_epilogue(int (*acc)[VEC / 2][4], int* red,
+                            T* __restrict__ out, const float* __restrict__ sw,
+                            const float* scale, int live, int N, int c0) {
   constexpr int STRIP = 8 * VEC;
   constexpr int RED = STRIP + 4;               // ints a row of partials
-  constexpr int D = kDepth;
-  constexpr int LOADS = tc::k3_loads(BITS);
-  const int stride = 32 * chunk + kXPad;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
-
-  __syncthreads();                             // the last tile's reads done
-
-  int acc[NB][VEC / 2][4];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int i = 0; i < VEC / 2; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[nb][i][r] = 0;
-
-  const int s_begin = warp * nsteps / kWarps;
-  const int s_end = (warp + 1) * nsteps / kWarps;
-  // the warp's packed rows: no load past them, not even a group ahead
-  const int prow = min(kp, s_end * tc::k3_step_rows(BITS));
-  const int col = c0 + VEC * g;
-  const bool col_ok = col < N;
-  const int8_t* wl = w + (col_ok ? col : 0);
-  uint32_t fa[D][LOADS][VEC / 4], fb[D][LOADS][VEC / 4];
-  tc::s8_load_group<BITS, VEC, D>(fa, wl, s_begin, prow, N, t, col_ok);
-  row_scales(x, K, live, vec, scale);
-  __syncthreads();
-
-  int8_t* xs = smem + (size_t)warp * TILE * stride;
-  const int8_t* xrow[NB];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) xrow[nb] = xs + (size_t)(8 * nb + g) * stride;
-  for (int c = s_begin; c < s_end; c += chunk) {
-    const int ce = min(c + chunk, s_end);
-    __syncwarp();                              // the last chunk's reads done
-    stage_chunk<BITS>(xs, x, scale, 8 * NB, live, K, kp, c, ce - c, chunk,
-                      stride, vec);
-    __syncwarp();
-    for (int s = c; s < ce; s += 2 * D) {
-      tc::s8_load_group<BITS, VEC, D>(fb, wl, s + D, prow, N, t, col_ok);
-      tc::s8_mma_group<BITS, VEC, NB, D>(fa, xrow, s - c, ce - c, 16 * chunk, t, acc);
-      tc::s8_load_group<BITS, VEC, D>(fa, wl, s + 2 * D, prow, N, t, col_ok);
-      tc::s8_mma_group<BITS, VEC, NB, D>(fb, xrow, s - c + D, ce - c, 16 * chunk, t, acc);
-    }
-  }
-
-  // the warps' partials [warp][row][column]: d0, d1 column a_col(i, 0) at
-  // rows 2t, 2t + 1; d2, d3 column a_col(i, 1)
-  __syncthreads();
-  int* red = reinterpret_cast<int*>(smem);
+  __syncthreads();                             // the mmas' reads done
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
@@ -259,7 +221,6 @@ __device__ void k5_tile(const T* __restrict__ x, const int8_t* __restrict__ w,
       *reinterpret_cast<int2*>(p + RED) = make_int2(acc[nb][i][1], acc[nb][i][3]);
     }
   __syncthreads();
-  // the exact sum, then (float)sum * sx * sw: two adjacent columns a thread
   constexpr int PAIRS = STRIP / 2;
   for (int idx = threadIdx.x; idx < live * PAIRS; idx += kThreads) {
     const int r = idx / PAIRS, cc = 2 * (idx % PAIRS);
@@ -279,28 +240,105 @@ __device__ void k5_tile(const T* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// Block (z, strip, e): expert e's row tiles z, z + Z, z + 2Z, ... (Z =
-// gridDim.x row-tile groups) over one strip of columns. The Z blocks of one
-// strip are neighbours in the grid, so they run side by side and read its
-// weights from memory about once.
+// One tile of NB n-blocks: rows [0, live) of x / out (offset by the caller)
+// over the block's strips, columns [c_begin, c_end). Warp w takes k-steps
+// [w * nsteps / 4, (w + 1) * nsteps / 4) in chunks of `chunk`
+// (`tc_warp_chunks`), quantizing each chunk's x into its own region of xs
+// (TILE rows of `stride` bytes) before its mmas; where its k-steps fit one
+// chunk, once for all the block's strips. The partials go to `red`.
+template <typename T, int BITS, int VEC, int NB, int TILE>
+__device__ void k5_tile(const T* __restrict__ x, const int8_t* __restrict__ w,
+                        const float* __restrict__ sw, T* __restrict__ out,
+                        int live, int K, int N, int kp, int nsteps, int chunk,
+                        int c_begin, int c_end, bool vec, int8_t* smem,
+                        int* red, float* scale) {
+  constexpr int STRIP = 8 * VEC;
+  constexpr int D = kDepth;
+  constexpr int LOADS = tc::k3_loads(BITS);
+  const int stride = 32 * chunk + kXPad;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+
+  __syncthreads();                             // the last tile's reads done
+
+  const int s_begin = warp * nsteps / kWarps;
+  const int s_end = (warp + 1) * nsteps / kWarps;
+  const bool once = s_end - s_begin <= chunk;
+  // the warp's packed rows: no load past them, not even a group ahead
+  const int prow = min(kp, s_end * tc::k3_step_rows(BITS));
+  uint32_t fa[D][LOADS][VEC / 4], fb[D][LOADS][VEC / 4];
+  int col = c_begin + VEC * g;
+  bool col_ok = col < N;
+  const int8_t* wl = w + (col_ok ? col : 0);
+  tc::s8_load_group<BITS, VEC, D>(fa, wl, s_begin, prow, N, t, col_ok);
+  row_scales(x, K, live, vec, scale);
+  __syncthreads();
+
+  int8_t* xs = smem + (size_t)warp * TILE * stride;
+  const int8_t* xrow[NB];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) xrow[nb] = xs + (size_t)(8 * nb + g) * stride;
+  if (once)
+    stage_chunk<BITS>(xs, x, scale, 8 * NB, live, K, kp, s_begin,
+                      s_end - s_begin, chunk, stride, vec);
+  for (int c0 = c_begin; c0 < c_end; c0 += STRIP) {
+    if (c0 != c_begin) {                       // the next strip's first group
+      col = c0 + VEC * g;
+      col_ok = col < N;
+      wl = w + (col_ok ? col : 0);
+      tc::s8_load_group<BITS, VEC, D>(fa, wl, s_begin, prow, N, t, col_ok);
+    }
+    int acc[NB][VEC / 2][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < VEC / 2; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[nb][i][r] = 0;
+    for (int c = s_begin; c < s_end; c += chunk) {
+      const int ce = min(c + chunk, s_end);
+      if (!once) {
+        __syncwarp();                          // the last chunk's reads done
+        stage_chunk<BITS>(xs, x, scale, 8 * NB, live, K, kp, c, ce - c, chunk,
+                          stride, vec);
+      }
+      __syncwarp();
+      for (int s = c; s < ce; s += 2 * D) {
+        tc::s8_load_group<BITS, VEC, D>(fb, wl, s + D, prow, N, t, col_ok);
+        tc::s8_mma_group<BITS, VEC, NB, D>(fa, xrow, s - c, ce - c, 16 * chunk, t, acc);
+        tc::s8_load_group<BITS, VEC, D>(fa, wl, s + 2 * D, prow, N, t, col_ok);
+        tc::s8_mma_group<BITS, VEC, NB, D>(fb, xrow, s - c + D, ce - c, 16 * chunk, t, acc);
+      }
+    }
+    k5_epilogue<T, BITS, VEC, NB>(acc, red, out, sw, scale, live, N, c0);
+  }
+}
+
+// Block (z, y, e): expert e's row tiles z, z + Z, z + 2Z, ... (Z =
+// gridDim.x row-tile groups) over strips [y * strips, (y + 1) * strips) of
+// columns. The Z blocks of one strip are neighbours in the grid, so they
+// run side by side and read its weights from memory about once.
 // At most 128 registers a thread with one n-block (4 blocks an SM), 168
 // with two (3): the weight stream needs the warps more than the registers.
 template <typename T, int BITS, int VEC, int NB_MAX>
 __global__ void __launch_bounds__(kThreads, NB_MAX == 1 ? 4 : 3)
 gmm_w8a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ sw, const int* __restrict__ counts,
-                T* __restrict__ out, int C, int K, int N) {
+                T* __restrict__ out, int C, int K, int N, int strips) {
   extern __shared__ __align__(16) int8_t smem_k5[];
   constexpr int TILE = 8 * NB_MAX;
   __shared__ float scale[TILE];
   const int z = blockIdx.x, groups = gridDim.x;
-  const int c0 = blockIdx.y * 8 * VEC;
+  const int c_begin = blockIdx.y * strips * 8 * VEC;
+  const int c_end = min(c_begin + strips * 8 * VEC, N);
   const int e = blockIdx.z;
   const int kp = BITS == 4 ? K / 2 : K;
   const int nsteps = (kp + tc::k3_step_rows(BITS) - 1) / tc::k3_step_rows(BITS);
   const int chunk = tc::chunk_steps(nsteps);
   const int count = min(max(counts[e], 0), C);
   const bool vec = (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(T) - 1)) == 0;
+  int* red = reinterpret_cast<int*>(
+      smem_k5 + (strips > 1 ? k5_xs_bytes(BITS, TILE, K) : 0));
   const T* xe = x + (size_t)e * C * K;
   const int8_t* we = w + (size_t)e * kp * N;
   const float* se = sw + (size_t)e * N;
@@ -311,51 +349,53 @@ gmm_w8a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     if (NB_MAX == 1 || live <= 8)
       k5_tile<T, BITS, VEC, 1, TILE>(xe + (size_t)r0 * K, we, se,
                                      oe + (size_t)r0 * N, live, K, N, kp,
-                                     nsteps, chunk, c0, vec, smem_k5, scale);
+                                     nsteps, chunk, c_begin, c_end, vec,
+                                     smem_k5, red, scale);
     else
       k5_tile<T, BITS, VEC, NB_MAX, TILE>(xe + (size_t)r0 * K, we, se,
                                           oe + (size_t)r0 * N, live, K, N, kp,
-                                          nsteps, chunk, c0, vec, smem_k5,
-                                          scale);
+                                          nsteps, chunk, c_begin, c_end, vec,
+                                          smem_k5, red, scale);
   }
   // rows at or past the count (every groups-th of them here): zeros, 4
   // columns a store
-  constexpr int QUADS = 2 * VEC;
+  const int quads = (c_end - c_begin + 3) / 4;
   const int dead = (C - count + groups - 1 - z) / groups;
-  for (int idx = threadIdx.x; idx < dead * QUADS; idx += kThreads) {
-    const int r = count + z + groups * (idx / QUADS), cc = c0 + 4 * (idx % QUADS);
-    if (cc < N) zero4(oe + (size_t)r * N + cc);
+  for (int idx = threadIdx.x; idx < dead * quads; idx += kThreads) {
+    const int r = count + z + groups * (idx / quads);
+    zero4(oe + (size_t)r * N + c_begin + 4 * (idx % quads));
   }
 }
 
 template <typename T, int BITS, int VEC, int NB_MAX>
 cudaError_t launch(const void* x, const int8_t* w, const float* sw,
                    const int* counts, void* out, int E, int C, int K, int N,
-                   int groups, cudaStream_t stream) {
+                   int groups, int strips, cudaStream_t stream) {
   auto kernel = gmm_w8a8_kernel<T, BITS, VEC, NB_MAX>;
-  const size_t smem = k5_smem(BITS, VEC, 8 * NB_MAX, K);
+  const size_t smem = k5_smem(BITS, VEC, 8 * NB_MAX, K, strips);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(groups, (N + 8 * VEC - 1) / (8 * VEC), E);
+  dim3 grid(groups, (N + strips * 8 * VEC - 1) / (strips * 8 * VEC), E);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), w, sw,
-                                           counts, static_cast<T*>(out), C, K, N);
+                                           counts, static_cast<T*>(out), C, K,
+                                           N, strips);
   return cudaGetLastError();
 }
 
 template <typename T, int BITS>
 cudaError_t dispatch(const void* x, const int8_t* w, const float* sw,
                      const int* counts, void* out, int E, int C, int K, int N,
-                     int tile_rows, int groups, cudaStream_t s) {
+                     int tile_rows, int groups, int strips, cudaStream_t s) {
   // 16-byte weight loads where every packed row starts 16-byte aligned
   const bool wide = N % 16 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   if (tile_rows == 8)
-    return wide ? launch<T, BITS, 16, 1>(x, w, sw, counts, out, E, C, K, N, groups, s)
-                : launch<T, BITS, 4, 1>(x, w, sw, counts, out, E, C, K, N, groups, s);
-  return wide ? launch<T, BITS, 16, 2>(x, w, sw, counts, out, E, C, K, N, groups, s)
-              : launch<T, BITS, 4, 2>(x, w, sw, counts, out, E, C, K, N, groups, s);
+    return wide ? launch<T, BITS, 16, 1>(x, w, sw, counts, out, E, C, K, N, groups, strips, s)
+                : launch<T, BITS, 4, 1>(x, w, sw, counts, out, E, C, K, N, groups, strips, s);
+  return wide ? launch<T, BITS, 16, 2>(x, w, sw, counts, out, E, C, K, N, groups, strips, s)
+              : launch<T, BITS, 4, 2>(x, w, sw, counts, out, E, C, K, N, groups, strips, s);
 }
 
 }  // namespace
@@ -363,24 +403,25 @@ cudaError_t dispatch(const void* x, const int8_t* w, const float* sw,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x's and the output's type); tile_rows 8
-// or 16, groups >= 1 row-tile groups per strip. Requires N % 4 == 0, K % 4
-// == 0 (K % 8 for INT4), contiguous tensors on `device`. Returns a
-// cudaError_t.
+// or 16, groups >= 1 row-tile groups per strip, strips >= 1 strips per
+// block. Requires N % 4 == 0, K % 4 == 0 (K % 8 for INT4), contiguous
+// tensors on `device`. Returns a cudaError_t.
 int grouped_gemm_w8a8_launch(const void* x, const int8_t* w, const float* sw,
                              const int* counts, void* out, int E, int C, int K,
                              int N, int bits, int dtype, int tile_rows,
-                             int groups, int device, void* stream) {
+                             int groups, int strips, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if ((tile_rows != 8 && tile_rows != 16) || groups < 1)
+  if ((tile_rows != 8 && tile_rows != 16) || groups < 1 || strips < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    err = bits == 4 ? dispatch<__nv_bfloat16, 4>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, s)
-                    : dispatch<__nv_bfloat16, 8>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, s);
+    err = bits == 4 ? dispatch<__nv_bfloat16, 4>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, strips, s)
+                    : dispatch<__nv_bfloat16, 8>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, strips, s);
   } else {
-    err = bits == 4 ? dispatch<float, 4>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, s)
-                    : dispatch<float, 8>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, s);
+    err = bits == 4 ? dispatch<float, 4>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, strips, s)
+                    : dispatch<float, 8>(x, w, sw, counts, out, E, C, K, N, tile_rows, groups, strips, s);
   }
   return (int)err;
 }

@@ -33,7 +33,7 @@ import torch
 
 from ..csrc import build
 from .fused_ffn import (DTYPE_CODES, check_cuda, counts_i32, fused_ffn_w8a8,
-                        live_rows, w8a8_step_rows)
+                        live_rows, sm_count, w8a8_step_rows)
 from .grouped_gemm_quant import tc_plan, two_call_ffn, warp_chunk_steps
 from .quant import QuantizedWeight, int_bmm, quantize_activations, unpack_int4
 
@@ -64,6 +64,11 @@ def grouped_gemm_w8a8_reference(x, qw: QuantizedWeight, counts=None):
 # it multiplies)
 K5_X_PAD = 16
 K5_DEPTH = 1
+# the most strips of columns a block takes where it quantizes its rows
+# once for all of them, and the blocks of 16-row tiles an SM holds (the
+# kernel's launch bounds; k5_plan)
+K5_STRIPS = 4
+K5_BLOCKS_PER_SM = 3
 
 
 def k5_steps(bits, k):
@@ -76,12 +81,34 @@ def k5_chunk_steps(bits, k):
     return warp_chunk_steps(k5_steps(bits, k))
 
 
-def k5_smem(bits, vec, rows, k):
+def k5_smem(bits, vec, rows, k, strips=1):
     """Shared memory of a block of `rows`-row tiles: each warp's staged int8
-    x chunk, or the warps' int32 partials, whichever is larger; it does not
-    grow with K."""
+    x chunk, and the warps' int32 partials after it, or over it where the
+    block takes one strip; it does not grow with K."""
     xs = 4 * rows * (32 * k5_chunk_steps(bits, k) + K5_X_PAD)
-    return max(xs, 4 * rows * (8 * vec + 4) * 4)
+    red = 4 * rows * (8 * vec + 4) * 4
+    return xs + red if strips > 1 else max(xs, red)
+
+
+def k5_plan(e, c, k, n, bits, sms, routed=None, tile_rows=None,
+            strips=None):
+    """(tile rows, row-tile groups, strips a block) of K5 on a card of
+    `sms` SMs: `tc_plan`'s tile and groups, and several strips of columns
+    a block where the tile is 16 rows (the experts are expected to fill
+    it) and each warp's x fits one chunk, so the block quantizes its rows
+    once for all its strips: the most, up to K5_STRIPS, whose blocks still
+    fill two waves; else one. `tile_rows` and `strips` pin them (tests
+    and tools)."""
+    rows, groups = tc_plan(e, c, routed, tile_rows)
+    if strips is None:
+        strips = 1
+        if rows == 16 and -(-k5_steps(bits, k) // 4) <= k5_chunk_steps(bits,
+                                                                       k):
+            columns = -(-n // (128 if n % 16 == 0 else 32))
+            while strips < K5_STRIPS and groups * e * -(
+                    -columns // (2 * strips)) >= 2 * K5_BLOCKS_PER_SM * sms:
+                strips *= 2
+    return rows, groups, strips
 
 
 def k5_stage_words(bits, c, n, chunk, k):
@@ -124,17 +151,13 @@ def grouped_gemm_w8a8(x, qw: QuantizedWeight, counts=None, *, routed=None):
                          f"{qw.shape}")
     if x.device.type == "cpu":
         return grouped_gemm_w8a8_reference(x, qw, counts)
-    return _launch(x, qw, counts, tc_plan(e, c, routed))
+    return _launch(x, qw, counts, routed=routed)
 
 
-def _launch(x, qw: QuantizedWeight, counts, plan):
-    """Kernel K5 on CUDA tensors with the (tile rows, groups) given;
-    `grouped_gemm_w8a8` passes `tc_plan`'s, and tools/gemm_tc_sweep.py
-    compares the tiles through here."""
-    rows, groups = plan
-    if rows not in (8, 16) or groups < 1:
-        raise ValueError(f"K5 takes tile_rows 8 or 16 and groups >= 1, got "
-                         f"{plan}")
+def _launch(x, qw: QuantizedWeight, counts, plan=None, routed=None):
+    """Kernel K5 on CUDA tensors with the (tile rows, groups, strips) given,
+    or `k5_plan`'s from `routed` (plan=None, as `grouped_gemm_w8a8` calls
+    it); tools/gemm_tc_sweep.py compares plans through here."""
     e, c, k = x.shape
     n = qw.shape[2]
     if x.device.type != "cuda":
@@ -143,6 +166,11 @@ def _launch(x, qw: QuantizedWeight, counts, plan):
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     vals, bits = _kernel_weight(qw)
+    rows, groups, strips = plan or k5_plan(e, c, k, n, bits,
+                                           sm_count(x.device.index), routed)
+    if rows not in (8, 16) or groups < 1 or strips < 1:
+        raise ValueError(f"K5 takes tile_rows 8 or 16, groups >= 1 and "
+                         f"strips >= 1, got {plan}")
     check_cuda("x", x, x.device, x.dtype)
     check_cuda("qw.values", vals, x.device, torch.int8)
     check_cuda("qw.scales", qw.scales, x.device, torch.float32)
@@ -160,7 +188,7 @@ def _launch(x, qw: QuantizedWeight, counts, plan):
     rc = lib.grouped_gemm_w8a8_launch(
         x.data_ptr(), vals.data_ptr(), qw.scales.data_ptr(), cnt.data_ptr(),
         out.data_ptr(), e, c, k, n, bits, DTYPE_CODES[x.dtype], rows, groups,
-        x.device.index or 0, stream)
+        strips, x.device.index or 0, stream)
     build.check(lib, rc, "grouped_gemm_w8a8")
     grouped_gemm_w8a8.launches += 1
     return out
