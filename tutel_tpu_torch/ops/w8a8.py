@@ -16,11 +16,11 @@ counts[e] are zeros (the JAX kernel zeroes whole 256-row blocks past the
 count and computes the rest). INT4 weights with blocks == 1 unpack in the
 kernel; block-packed INT4 unpacks outside and runs as INT8, as in JAX.
 
-K5 runs K1's grid (`grouped_gemm_quant.tc_plan`, from the routed rows)
-over K3's int8 tensor-core fragments (`fused_ffn.w8a8_*`); the `k5_*`
-functions below are its k-steps, its staging of the quantized x and its
-shared memory, mirrored by the kernel, so that the CPU tests can assemble
-its products lane by lane.
+K5 runs K1's grid (`grouped_gemm_quant.tc_plan`, from the routed rows;
+`k5_plan` adds strips a block) over K3's int8 tensor-core fragments
+(`fused_ffn.w8a8_*`); the `k5_*` functions below are its plan, k-steps,
+staging of the quantized x and shared memory, mirrored by the kernel, so
+that the CPU tests can assemble its products lane by lane.
 
 `w8a8_ffn` takes the fused kernel K3 (`ops.fused_ffn.fused_ffn_w8a8`)
 when the params carry a stream covering the output width and runs K5
@@ -141,8 +141,8 @@ def grouped_gemm_w8a8(x, qw: QuantizedWeight, counts=None, *, routed=None):
     are zeros. CPU tensors run the plain twin; CUDA tensors run kernel K5,
     and anything the kernel does not take raises. `routed`: the rows
     routed to the experts, known on the host (the MoE layer's tokens x
-    top-k; None: all E x C), from which `tc_plan` picks the row tile and
-    groups.
+    top-k; None: all E x C), from which `k5_plan` picks the row tile,
+    groups and strips a block.
     """
     e, c, k = x.shape
     ew, kw, n = qw.shape
