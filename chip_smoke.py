@@ -189,11 +189,11 @@ def host_us(fn, calls=1000):
     return seconds / calls * 1e6
 
 
-def device_ms(fn, symbol, reps=REPS):
-    """Mean device time of the kernels whose name holds `symbol` (per
-    launch), or of all the call's kernels with symbol=None (per call), from
-    torch.profiler over `reps` calls: the wrapper's host time, which the
-    event-timed median_ms includes, is left out."""
+def device_events(fn, reps, enough, what):
+    """[(name, ms)] of the device events of `reps` calls, from
+    torch.profiler, traced again (up to 4 times) while `enough(events)`
+    is false: a trace now and then holds no kernel (two in a row have been
+    seen on an H100), or loses some. `what` names the events sought."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -202,20 +202,35 @@ def device_ms(fn, symbol, reps=REPS):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if str(e.device_type).endswith("CUDA")
-                 and (symbol is None or symbol in e.name)]
-        # every call launches the same kernels, so a whole trace holds a
-        # multiple of `reps` of them
-        if spans and (symbol is not None or len(spans) % reps == 0):
-            return sum(spans) / 1e3 / (reps if symbol is None else len(spans))
-        # a trace now and then holds no kernel (two in a row have been
-        # seen on an H100), or loses some: try again
-        print(json.dumps({"profiler_retry": symbol or "every kernel",
-                          "reason": f"the trace held {len(spans)} such "
-                                    f"kernels for {reps} calls"}),
+        events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                  for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if enough(events):
+            return events
+        print(json.dumps({"profiler_retry": what,
+                          "reason": f"the trace held {len(events)} device "
+                                    f"events for {reps} calls"}),
               flush=True)
-    raise RuntimeError(f"the profiler saw no launch of {symbol}")
+    raise RuntimeError(f"the profiler saw no launch of {what}")
+
+
+def whole_calls(reps):
+    """`enough` of a trace of whole calls: every call launches the same
+    kernels, so it holds a multiple of `reps` of them."""
+    return lambda events: events and len(events) % reps == 0
+
+
+def device_ms(fn, symbol, reps=REPS):
+    """Mean device time of the kernels whose name holds `symbol` (per
+    launch), or of all the call's kernels with symbol=None (per call), from
+    torch.profiler over `reps` calls: the wrapper's host time, which the
+    event-timed median_ms includes, is left out."""
+    if symbol is None:
+        events = device_events(fn, reps, whole_calls(reps), "every kernel")
+        return sum(ms for _, ms in events) / reps
+    events = device_events(fn, reps, lambda ev: any(
+        symbol in name for name, _ in ev), symbol)
+    spans = [ms for name, ms in events if symbol in name]
+    return sum(spans) / len(spans)
 
 
 def start_ptxas(name="prefill_attn"):
@@ -375,12 +390,19 @@ K5_DESIGN = ("tensor cores: mma.sync m16n8k32 s8, the weights as M, K1's "
 
 def timed_gemm(record, kernel, symbol, plain, bmm, bounds):
     """A grouped GEMM's check with its timings: event ms, device ms (every
-    kernel of the call, and the kernel `symbol` alone), host microseconds
-    (200 calls without a synchronize), its share of the bound on the
-    device, and the plain twin and the bf16 torch.bmm yardstick."""
-    dev = device_ms(kernel, None)
+    kernel of the call, and the kernel `symbol` alone, from one trace),
+    the device events a call and their names, host microseconds (200
+    calls without a synchronize), its share of the bound on the device,
+    and the plain twin and the bf16 torch.bmm yardstick."""
+    events = device_events(kernel, REPS, whole_calls(REPS), "every kernel")
+    own = [ms for name, ms in events if symbol in name]
+    if not own:
+        raise RuntimeError(f"the profiler saw no launch of {symbol}")
+    dev = sum(ms for _, ms in events) / REPS
     return {**record, "ms": median_ms(kernel), "device_ms": dev,
-            "kernel_device_ms": device_ms(kernel, symbol),
+            "kernel_device_ms": sum(own) / len(own),
+            "kernels_per_call": len(events) / REPS,
+            "call_kernels": sorted({name for name, _ in events}),
             "host_us": host_us(kernel, calls=200),
             "plain_ms": median_ms(plain), "bf16_bmm_ms": median_ms(bmm),
             **bounds, "bound_share": bounds["bound_ms"] / dev}
@@ -515,6 +537,11 @@ def check_w8a8_kernels(shape, bandwidth):
         lambda: w8a8.grouped_gemm_w8a8_reference(x, w1, counts),
         lambda: torch.bmm(x, w1_dense),
         bound(moved, 2 * live_rows * k * h, bandwidth, INT8_PEAK)))
+    # x is quantized inside the kernel: the call is that one launch
+    if out[-1]["kernels_per_call"] != 1:
+        raise RuntimeError(f"K5 at {name}: a call launched "
+                           f"{out[-1]['call_kernels']}, "
+                           f"{out[-1]['kernels_per_call']} a call, not one")
 
     def k3():
         return fused_ffn.fused_ffn_w8a8(x, stream, counts,

@@ -838,27 +838,33 @@ def test_k5_plan_from_routed(e, c, routed, plan, monkeypatch):
 ])
 def test_k5_plan_takes_strips_where_x_is_staged_once(bits, k, strips):
     """Strips a block only where x is staged once and 16-row tiles are
-    expected; pinned strips pass through."""
+    expected."""
     assert w8a8.k5_plan(128, 32, k, 2048, bits, 132) == (16, 2, strips)
     assert w8a8.k5_plan(128, 32, k, 2048, bits, 132, 512) == (8, 1, 1)
-    assert w8a8.k5_plan(128, 32, k, 2048, bits, 132, strips=2)[2] == 2
 
 
-@pytest.mark.parametrize("e,n,routed,strips", [
-    (128, 2048, None, 4),           # 2 groups x 16 strips x 128: 1024 at 4
-    (64, 4096, 990, 2),             # K < H: 1 group x 32 strips x 64
-    (64, 4096, None, 4),
-    (8, 640, None, 1),              # too few blocks to share the strips
-    (128, 200, None, 2),            # 7 strips of 32 columns (N % 16 != 0)
+@pytest.mark.parametrize("e,n,routed,k,strips", [
+    (128, 2048, None, 1024, 4),     # 2 groups x 16 strips x 128: 1024 at 4
+    (64, 4096, 990, 1024, 2),       # K < H: 1 group x 32 strips x 64
+    (64, 4096, None, 1024, 4),
+    (8, 640, None, 1024, 1),        # too few blocks to share the strips
+    (128, 200, None, 1024, 2),      # 7 strips of 32 columns (N % 16 != 0)
+    (96, 2048, None, 2048, 2),      # 768 blocks at 4 strips: under 2 x 3
+    (96, 2048, None, 4096, 4),      # 98 KB a block: 2 an SM, 2 waves at 4
 ])
-def test_k5_plan_keeps_two_waves_of_blocks(e, n, routed, strips):
+def test_k5_plan_keeps_two_waves_of_blocks(e, n, routed, k, strips):
     """The most strips a block (up to 4) whose blocks still fill two waves
-    of 3 blocks on each of 132 SMs."""
-    rows, groups, got = w8a8.k5_plan(e, 32, 1024, n, 8, 132, routed)
+    of the blocks each of 132 SMs holds: 3 by the launch bounds, fewer
+    where the partials beside x leave room for fewer."""
+    rows, groups, got = w8a8.k5_plan(e, 32, k, n, 8, 132, routed)
     assert rows == 16 and got == strips
-    columns = -(-n // (128 if n % 16 == 0 else 32))
+    vec = 16 if n % 16 == 0 else 4
+    columns = -(-n // (8 * vec))
+    smem = w8a8.k5_smem(8, vec, rows, k, 2) + w8a8.K5_BLOCK_SMEM
+    per_sm = min(3, w8a8.SM_SMEM_BYTES // smem)
+    assert per_sm == (2 if k == 4096 else 3)
     blocks = groups * e * -(-columns // got)
-    assert got == 1 or blocks >= 2 * 3 * 132
+    assert got == 1 or blocks >= 2 * per_sm * 132
 
 
 @pytest.mark.parametrize("k", [768, 2048, 8192, 14336])

@@ -70,6 +70,24 @@ def _counts(e, c, device, seed):
     return torch.tensor(counts, dtype=torch.int32, device=device)
 
 
+def _device_events(fn):
+    """Names of the device events of one call of fn, from torch.profiler
+    (traced again, up to 4 times, while a trace holds none: the profiler
+    now and then loses a trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            return names
+    return []
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_activations_on_gpu_is_bitwise_cpu(cuda, dtype):
     """The activation quantizer gives the same int8 values and scales on
@@ -98,6 +116,11 @@ def test_grouped_gemm_w8a8_kernel_matches_twin(cuda, dtype, bits, blocks):
     ref = w8a8.grouped_gemm_w8a8_reference(x, qw, counts)
     assert got.dtype == dtype and torch.equal(got, ref)
     assert _dead_rows_zero(got, counts)
+    # one kernel a call, x quantized inside it; block-packed INT4 is
+    # unpacked to INT8 by torch ops before it
+    names = _device_events(lambda: w8a8.grouped_gemm_w8a8(x, qw, counts))
+    assert sum("gmm_w8a8_kernel" in name for name in names) == 1
+    assert blocks != 1 or len(names) == 1, names
 
 
 # live rows 0, 1, 7, 8, 9, 16, 17 and 20: one and two n-blocks of the mma

@@ -24,10 +24,11 @@ one JSON line per reading:
     picks and with the other one (8 or 16 rows, through the wrapper's
     `_launch`); and in float32 (the CUDA-core body) at the MoE decode step;
   * K5 at `chip_smoke.py`'s four W8A8 shapes (the MoE decode step in INT4
-    and INT8, every row live, and K < H in INT8), each with the plan
-    `w8a8.k5_plan` makes for 8- and 16-row tiles and with the 16-row tile
-    at 1, 2, 4 and 8 strips a block, its whole call's device ms and the
-    kernel's alone (`kernel_device_ms`) and `host_us`;
+    and INT8, every row live, and K < H in INT8) and with every row live
+    at K = 4096, each with the 8-row tile and with the 16-row tile at 1,
+    2, 4 and 8 strips a block (`planned`: the plan `w8a8.k5_plan` makes),
+    its whole call's device ms and the kernel's alone
+    (`kernel_device_ms`) and `host_us`;
   * K3 at the W4A8 decode step in INT4 and INT8, the same step over 32
     experts (32 blocks: the rate a block reaches without the others),
     the same step over 8 experts (a 34 MB stream that stays in L2 from
@@ -183,14 +184,17 @@ def k5_case(label, e, c, k, n, rows, bits, default=False,
              lambda: w8a8.grouped_gemm_w8a8(x, w, counts), ref, weights,
              bound_ms, **base)
         return
-    plans = [w8a8.k5_plan(e, c, k, n, bits, fused_ffn.sm_count(0), live,
-                          tile) for tile in (8, 16)]
-    # the 16-row tile with each count of strips a block
-    plans += [plans[1][:2] + (s,) for s in (1, 2, 4, 8) if s != plans[1][2]]
+    # the 8-row tile (one strip a block: k5_plan gives it no more), and the
+    # 16-row tile with each count of strips a block; `planned` marks the
+    # plan k5_plan makes from the routed rows
+    chosen = w8a8.k5_plan(e, c, k, n, bits, fused_ffn.sm_count(0), live)
+    plans = [gq.tc_plan(e, c, live, 8) + (1,)]
+    plans += [gq.tc_plan(e, c, live, 16) + (s,) for s in (1, 2, 4, 8)]
     for plan in plans:
         read(label, "grouped_gemm_w8a8",
              lambda: w8a8._launch(x, w, counts, plan), ref, weights,
-             bound_ms, tile_rows=plan[0], plan=plan, **base)
+             bound_ms, tile_rows=plan[0], plan=plan,
+             planned=plan == chosen, **base)
 
 
 def k3_case(label, e, c, k, h, n, rows, bits, act, bias, default=False,
@@ -275,6 +279,9 @@ def main():
                               ("all_rows", [32] * 128, 4)):
         k5_case(label, 128, 32, 2048, 2048, rows, bits, **kw)
     k5_case("k_lt_h", 64, 32, 1024, 4096, k_lt_h, 8, **kw)
+    # every row live at K = 4096: x still one chunk a warp, but a block of
+    # several strips takes 98 KB, so an SM holds 2 of them, not 3
+    k5_case("all_rows_k4096", 128, 32, 4096, 2048, [32] * 128, 4, **kw)
     torch.cuda.empty_cache()
     for label, bits in (("decode", 4), ("decode_int8", 8)):
         k3_case(label, 128, 32, 2048, 2048, 2048, moe, bits, "relu", False,

@@ -13,7 +13,10 @@
 // [E, 1, N]; out [E, C, N] in x's type. The quantization is
 // `quantize_activations`' arithmetic (correctly rounded divisions, rint),
 // the int32 sums are exact, and the two rescales run in this order with no
-// fused multiply-add, so the result equals the plain twin bit for bit.
+// fused multiply-add, so the result equals the plain twin bit for bit
+// where x is finite. A row holding NaN is not: fmaxf skips the NaN in the
+// absmax where the twin's amax keeps it, and the twin's int8 conversion of
+// NaN is undefined.
 //
 // What bounds it on an H100: at decode shapes (a few rows per expert) the
 // kernel must read every live expert's packed weights once: K*N/2 bytes

@@ -11,7 +11,9 @@ out = (float)acc * sx * sw.
 `grouped_gemm_w8a8` launches the CUDA kernel K5 (`csrc/grouped_gemm_w8a8.cu`)
 for CUDA tensors and runs its plain PyTorch twin,
 `grouped_gemm_w8a8_reference`, for CPU tensors. K5 takes x as it is and
-quantizes the live rows itself, so a call is one launch. Rows at or past
+quantizes the live rows itself, so a call is one launch, equal to the
+twin bit for bit where x is finite (not in a row holding NaN: the
+kernel's absmax skips it, the twin's keeps it). Rows at or past
 counts[e] are zeros (the JAX kernel zeroes whole 256-row blocks past the
 count and computes the rest). INT4 weights with blocks == 1 unpack in the
 kernel; block-packed INT4 unpacks outside and runs as INT8, as in JAX.
@@ -65,10 +67,14 @@ def grouped_gemm_w8a8_reference(x, qw: QuantizedWeight, counts=None):
 K5_X_PAD = 16
 K5_DEPTH = 1
 # the most strips of columns a block takes where it quantizes its rows
-# once for all of them, and the blocks of 16-row tiles an SM holds (the
-# kernel's launch bounds; k5_plan)
+# once for all of them, the blocks of 16-row tiles an SM holds by their
+# registers (the kernel's launch bounds), and the shared memory an SM has
+# and a block takes besides its dynamic bytes (the runtime's 1 KB and the
+# row scales; k5_plan)
 K5_STRIPS = 4
 K5_BLOCKS_PER_SM = 3
+SM_SMEM_BYTES = 233472
+K5_BLOCK_SMEM = 1024 + 64
 
 
 def k5_steps(bits, k):
@@ -90,24 +96,24 @@ def k5_smem(bits, vec, rows, k, strips=1):
     return xs + red if strips > 1 else max(xs, red)
 
 
-def k5_plan(e, c, k, n, bits, sms, routed=None, tile_rows=None,
-            strips=None):
+def k5_plan(e, c, k, n, bits, sms, routed=None):
     """(tile rows, row-tile groups, strips a block) of K5 on a card of
     `sms` SMs: `tc_plan`'s tile and groups, and several strips of columns
     a block where the tile is 16 rows (the experts are expected to fill
     it) and each warp's x fits one chunk, so the block quantizes its rows
     once for all its strips: the most, up to K5_STRIPS, whose blocks still
-    fill two waves; else one. `tile_rows` and `strips` pin them (tests
-    and tools)."""
-    rows, groups = tc_plan(e, c, routed, tile_rows)
-    if strips is None:
-        strips = 1
-        if rows == 16 and -(-k5_steps(bits, k) // 4) <= k5_chunk_steps(bits,
-                                                                       k):
-            columns = -(-n // (128 if n % 16 == 0 else 32))
-            while strips < K5_STRIPS and groups * e * -(
-                    -columns // (2 * strips)) >= 2 * K5_BLOCKS_PER_SM * sms:
-                strips *= 2
+    fill two waves of the blocks an SM holds (by registers and by shared
+    memory, which holds the partials beside x); else one."""
+    rows, groups = tc_plan(e, c, routed)
+    strips = 1
+    if rows == 16 and -(-k5_steps(bits, k) // 4) <= k5_chunk_steps(bits, k):
+        vec = 16 if n % 16 == 0 else 4
+        columns = -(-n // (8 * vec))
+        per_sm = min(K5_BLOCKS_PER_SM, SM_SMEM_BYTES // (
+            k5_smem(bits, vec, rows, k, 2) + K5_BLOCK_SMEM))
+        while strips < K5_STRIPS and groups * e * -(
+                -columns // (2 * strips)) >= 2 * per_sm * sms:
+            strips *= 2
     return rows, groups, strips
 
 
