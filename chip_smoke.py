@@ -96,7 +96,31 @@ In order, it
      CPU (float32; two-layer experts with INT8 and float caches, SwiGLU
      experts with an INT8 cache): the same greedy tokens, and apply_decode
      logits within 1e-4;
- 10. prints one JSON line per check and phase, the {"kernels": [...]} line
+ 10. trains (slice 3; no ported kernel runs there, and each phase checks
+     that none launched): the helloworld trainer of
+     tutel_tpu_torch/examples/helloworld.py at the JAX example's default
+     width (16 x 512 tokens, model_dim 2048, hidden 2048, 2 experts,
+     top-2, float32, capacity_factor 1.0, 10 SGD steps; helloworld_train:
+     the losses, which must be finite and fall, the median step ms of the
+     last 5 steps, TFLOP/s by the reference's formula, peak memory,
+     allow_tf32 and a profiled step); two backward passes of
+     fast_encode/fast_decode at that shape (top-1 dropping tokens, and
+     top-2), which must give equal bits (dispatch_backward_bitwise); the
+     same trainer on the card and on the CPU at model_dim 256, hidden 256,
+     4 x 128 tokens, 10 steps (top-1, top-2, dropless top-2, top-2 of 4
+     experts), losses within 1e-4 (train_vs_cpu); one TransformerMoE
+     loss + backward + SGD(1e-3) step, 6 times (the first a warm-up
+     left out of the median), at
+     benchmarks/bench_lm_train.py's configuration (vocabulary 32768,
+     model_dim 2048, 16 heads, 4 layers, FFN 8192, MoE in 2 of them with 8
+     experts of 2048, top-2, capacity_factor 1.25, batch 32 x 512,
+     bfloat16; lm_train: ms a step, tokens/s, the share of the 989 TFLOP/s
+     bf16 peak by that benchmark's FLOP count, peak memory, a profiled
+     step; it fails on a loss or gradient that is not finite); and a small
+     float32 LM (2 layers, model_dim 128, vocabulary 512) trained 3 steps
+     on the card and on the CPU, losses within 1e-4
+     (small_lm_train_vs_cpu);
+ 11. prints one JSON line per check and phase, the {"kernels": [...]} line
      (all ten kernels), and last {"ok": true, "device": {...}}.
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
@@ -120,14 +144,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tutel_tpu_torch import jit, moe  # noqa: E402
 from tutel_tpu_torch.csrc import build  # noqa: E402
+from tutel_tpu_torch.examples import helloworld  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoE  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoEConfig  # noqa: E402
 from tutel_tpu_torch.ops import activations, fused_ffn, quant, w8a8  # noqa: E402
 from tutel_tpu_torch.ops import decode_attn as da  # noqa: E402
 from tutel_tpu_torch.ops import grouped_gemm_quant as gq  # noqa: E402
-from tutel_tpu_torch.ops import kv_write  # noqa: E402
+from tutel_tpu_torch.ops import dispatch, kv_write, routing  # noqa: E402
 from tutel_tpu_torch.serving import LmDecodeEngine, LmRequest  # noqa: E402
 from tutel_tpu_torch.serving import MoeDecodeEngine, Request  # noqa: E402
+from tutel_tpu_torch.utils import (  # noqa: E402
+    sgd_step, tree_leaves, tree_replace)
 
 SEED = 0
 BF16_TOL = 2e-2            # max |kernel - twin| / max |twin|, bfloat16
@@ -1376,6 +1403,259 @@ def small_lm_check(expert_type="ffn", kv_modes=(8, 0)):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Training (slice 3): no ported kernel lies on this path
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_lm_train.py:34-46: its model and batch
+LM_TRAIN_CONFIG = dict(vocab_size=32768, max_len=512, model_dim=2048,
+                       num_heads=16, num_layers=4, ffn_hidden=8192,
+                       moe_every=2, num_local_experts=8, top_k=2,
+                       capacity_factor=1.25, expert_hidden=2048)
+LM_TRAIN_BATCH = (32, 512)
+TRAIN_TOL = 1e-4           # card vs CPU losses, float32, TF32 off
+
+
+def on(tree, device):
+    return tree_replace(tree, [t.to(device) for t in tree_leaves(tree)])
+
+
+# coarse kinds of device kernels, first match wins
+KERNEL_KINDS = (("gemm", ("gemm", "nvjet", "xmma", "cutlass", "magma",
+                          "gemv")),
+                ("cumsum", ("scan_outer_dim", "scan_inner_dim")),
+                ("softmax", ("softmax",)),
+                ("reduce", ("reduce_kernel",)),
+                ("index", ("index", "gather", "scatter")),
+                ("copy", ("copy", "Memcpy", "Memset")),
+                ("elementwise", ("elementwise",)))
+
+
+def profiled(fn):
+    """fn() under torch.profiler: device busy ms, span ms, busy share, the
+    device ms of each kind of kernel (KERNEL_KINDS) and the kernels with
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, _, busy, span, events = device_time(prof)
+    kinds = {}
+    for name, us in by_name.items():
+        kind = next((k for k, marks in KERNEL_KINDS
+                     if any(m in name for m in marks)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+    return {"device_events": events, "device_busy_ms": busy / 1e3,
+            "span_ms": span / 1e3, "busy_share": busy / span,
+            "ms_by_kind": kinds,
+            "top_kernels_ms": [[n[:70], t / 1e3] for n, t in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:12]]}
+
+
+def helloworld_train(smi):
+    """The port's helloworld trainer at the JAX example's default width on
+    the card, seeded by the trainer itself."""
+    args = helloworld.build_args(["--num_steps", "10", "--device", "cuda"])
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, _ = helloworld.run(args, log=lines.append)
+    launches = read_launches("helloworld_train", set())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"helloworld losses {losses}: not finite, or "
+                           "the last is not below the first")
+    step_s = [float(re.search(r"step_time = ([0-9.]+) sec", ln).group(1))
+              for ln in lines if ln.startswith("STEP-")]
+    median_s = statistics.median(step_s[-5:])
+    flops = (args.batch_size * args.num_tokens * args.model_dim
+             * args.hidden_size * 4 * 3 * min(args.top,
+                                               args.num_local_experts))
+    two = helloworld.build_args(["--num_steps", "2", "--device", "cuda"])
+    params, x = helloworld.start(two, "cuda")
+    prof = profiled(lambda: helloworld.run(two, log=lambda *_: None,
+                                           params=params, x=x))
+    return {"phase": "helloworld_train",
+            "config": {k: getattr(args, k) for k in (
+                "batch_size", "num_tokens", "model_dim", "hidden_size",
+                "num_local_experts", "top", "dtype", "capacity_factor",
+                "num_steps")},
+            "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+            "median_step_ms_last5": median_s * 1e3,
+            "tflops": flops / median_s / 1e12,
+            "f32_peak_share": flops / median_s / F32_PEAK,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "launches": launches, "profile_2_steps": prof, "card": smi}
+
+
+def dispatch_backward_bitwise(s=8192, e=2, m=2048):
+    """Two backward passes of fast_encode (gates at encode) and fast_decode
+    (gates at decode) at the helloworld shape must give equal bits: top-1
+    at capacity_factor 1.0 (tokens dropped) and top-2."""
+    out = {}
+    for k in (1, 2):
+        g = torch.Generator(device="cuda").manual_seed(SEED + k)
+        scores = torch.softmax(torch.randn(s, e, generator=g, device="cuda"),
+                               dim=1)
+        cap = routing.compute_static_capacity(s, e, k, 1.0)
+        crit, _ = routing.extract_critical(scores, k, cap)
+        x, cot = (torch.randn(s, m, generator=g, device="cuda")
+                  for _ in range(2))
+        w = torch.randn(e, 1, m, generator=g, device="cuda")
+        grads = []
+        for _ in range(2):
+            xx = x.clone().requires_grad_(True)
+            gates = crit.gates.clone().requires_grad_(True)
+            c = crit._replace(gates=gates)
+            y = dispatch.fast_encode(xx, c, False) * w
+            grads.append(torch.autograd.grad(
+                dispatch.fast_decode(y, c, True), (xx, gates), cot))
+        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+            raise RuntimeError(f"two dispatch backward passes (top-{k}) "
+                               "differ")
+        out[f"top{k}"] = {"capacity": cap, "dropped": int(
+            (crit.locations >= cap).sum()), "bitwise_equal": True}
+    return out
+
+
+def train_vs_cpu():
+    """The helloworld trainer on the card and on the CPU from the same
+    start: losses within TRAIN_TOL (relative and absolute)."""
+    base = ["--batch_size", "4", "--num_tokens", "128", "--model_dim", "256",
+            "--hidden_size", "256", "--num_steps", "10"]
+    out = {}
+    for name, extra in (("top1", ["--top", "1"]), ("top2", ["--top", "2"]),
+                        ("top2_dropless", ["--top", "2",
+                                           "--capacity_factor", "0"]),
+                        ("top2_e4", ["--top", "2",
+                                     "--num_local_experts", "4"])):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            args = helloworld.build_args(base + extra + ["--device", dev])
+            params, x = helloworld.start(args, "cpu")
+            losses[dev] = np.array(helloworld.run(
+                args, log=lambda *_: None, params=on(params, dev),
+                x=x.to(dev))[0])
+        if not np.allclose(losses["cuda"], losses["cpu"], rtol=TRAIN_TOL,
+                           atol=TRAIN_TOL):
+            raise RuntimeError(f"train_vs_cpu {name}: {losses}")
+        out[name] = {"max_abs_diff": float(np.max(np.abs(
+            losses["cuda"] - losses["cpu"]))),
+            "losses_cuda": losses["cuda"].tolist()}
+    return out
+
+
+def lm_sgd_step(model, params, tokens, lr=1e-3):
+    """One TransformerMoE.loss + backward + SGD step: (new params, loss,
+    a device flag: loss and every gradient finite)."""
+    params, loss, grads = sgd_step(
+        lambda p: model.loss(p, tokens, training=True)[0], params, lr)
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]
+                         + [torch.isfinite(loss)]).all()
+    return params, loss, finite
+
+
+def lm_train(smi, steps=6):
+    """bench_lm_train.py's model and batch in bfloat16 on the card: `steps`
+    SGD steps on tokens from a numpy seed (rolled by the step, as that
+    benchmark does), the first a warm-up that the median leaves out, then
+    one more under torch.profiler."""
+    cfg = TransformerMoEConfig(**LM_TRAIN_CONFIG, dtype=torch.bfloat16)
+    model = TransformerMoE(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    b, t = LM_TRAIN_BATCH
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (b, t))).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses, finite = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss, ok = lm_sgd_step(model, params,
+                                       torch.roll(tokens, i, dims=1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        finite.append(bool(ok))
+    launches = read_launches("lm_train", set())
+    if not all(finite):
+        raise RuntimeError(f"lm_train: a loss or gradient is not finite "
+                           f"(steps {finite}, losses {losses})")
+    # bench_lm_train.py:72-86: matmul FLOPs of T - 1 positions, x3
+    d, tt = cfg.model_dim, t - 1
+    n_moe = sum(1 for i in range(cfg.num_layers) if (i + 1) % 2 == 0)
+    per_tok = (cfg.num_layers * (8 * d * d + 4 * tt * d)
+               + (cfg.num_layers - n_moe) * 4 * d * cfg.ffn_hidden
+               + n_moe * min(cfg.top_k, cfg.num_local_experts) * 4 * d
+               * cfg.expert_hidden + 2 * d * cfg.vocab_size)
+    tokens_per_step = b * tt
+    flops_step = 3 * per_tok * tokens_per_step
+    step_s = statistics.median(times[1:])
+    prof = profiled(lambda: lm_sgd_step(model, params,
+                                        torch.roll(tokens, steps, dims=1)))
+    return {"phase": "lm_train", "config": {**LM_TRAIN_CONFIG,
+                                            "batch": b, "seq": t,
+                                            "dtype": "bfloat16"},
+            "params": n_params, "losses": losses,
+            "warmup_step_ms": times[0] * 1e3,
+            "step_ms": [x * 1e3 for x in times[1:]],
+            "median_step_ms": step_s * 1e3,
+            "tokens_per_s": tokens_per_step / step_s,
+            "analytic_gflops_per_step": flops_step / 1e9,
+            "bf16_peak_share": flops_step / step_s / BF16_PEAK,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "profile_1_step": prof, "card": smi}
+
+
+def small_lm_train_vs_cpu(steps=3):
+    """A small float32 LM trained `steps` SGD steps on the card and on the
+    CPU from the same start: losses within TRAIN_TOL."""
+    cfg = TransformerMoEConfig(
+        vocab_size=512, max_len=64, model_dim=128, num_heads=4,
+        num_kv_heads=2, num_layers=2, ffn_hidden=256, moe_every=2,
+        num_local_experts=4, top_k=2, capacity_factor=1.25,
+        expert_hidden=256)
+    start = TransformerMoE(cfg, device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (4, 64)))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = TransformerMoE(cfg, device=dev)
+        params, toks, ls = on(start, dev), tokens.to(dev), []
+        for i in range(steps):
+            params, loss, _ = lm_sgd_step(model, params,
+                                          torch.roll(toks, i, dims=1))
+            ls.append(float(loss))
+        losses[dev] = np.array(ls)
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=TRAIN_TOL,
+                       atol=TRAIN_TOL):
+        raise RuntimeError(f"small LM training on the card disagrees with "
+                           f"the CPU: {losses}")
+    return {"phase": "small_lm_train_vs_cpu", "losses_cuda":
+            losses["cuda"].tolist(), "max_abs_diff": float(np.max(np.abs(
+                losses["cuda"] - losses["cpu"]))), "tol": TRAIN_TOL}
+
+
+def training_phases(smi):
+    """Slice 3's phases, in order; each prints its JSON line."""
+    print(json.dumps(helloworld_train(smi)), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "dispatch_backward_bitwise",
+                      **dispatch_backward_bitwise()}), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "train_vs_cpu", "tol": TRAIN_TOL,
+                      "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                      **train_vs_cpu()}), flush=True)
+    print(json.dumps(lm_train(smi)), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps(small_lm_train_vs_cpu()), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
@@ -1612,6 +1892,9 @@ def main():
                       "max_rel_err": small_lm_check("llama_ffn", (8,)),
                       "tol": SMALL_TOL, "greedy_tokens": "identical"}),
           flush=True)
+    torch.cuda.empty_cache()
+
+    training_phases(smi)
 
     sources = {
         "grouped_gemm_quant": ("tutel_tpu_torch/csrc/grouped_gemm_quant.cu",

@@ -8,6 +8,10 @@ which launches the CUDA kernels K2 or K1 for CUDA tensors, or, with
 `activation_bits=8` (W8A8 / W4A8), `ops.w8a8.w8a8_ffn`, which launches K3
 or K5. Float weights ignore `activation_bits`, as in the JAX package.
 The default activation is relu.
+
+The float path trains under autograd. Quantized weights are for
+inference only: a call with `ctx.training` raises (the JAX package's
+Pallas calls have no gradient either).
 """
 
 import dataclasses
@@ -61,6 +65,7 @@ class FusedExpertsNetwork:
         """x: [E, rows, M] -> [E, rows, output_dim]."""
         fc1_w, fc2_w = params["fc1_w"], params["fc2_w"]
         if isinstance(fc1_w, QuantizedWeight):
+            refuse_training(ctx)
             ffn = w8a8_ffn if self.activation_bits == 8 else quantized_ffn
             return ffn(x, params, ctx, activation_fn=self.activation_fn,
                        output_dim=self.output_dim)
@@ -80,3 +85,12 @@ class FusedExpertsNetwork:
 
 
 ExpertModule = FusedExpertsNetwork
+
+
+def refuse_training(ctx):
+    """Raise for a training call (`ctx.training`) on quantized weights."""
+    if getattr(ctx, "training", False):
+        raise ValueError(
+            "quantized expert weights are inference-only: their kernels "
+            "have no backward; train with float weights and quantize "
+            "after")

@@ -25,6 +25,7 @@ from ..ops.fused_ffn import fused_swiglu_quant
 from ..ops.grouped_gemm_quant import grouped_gemm_quant
 from ..ops.quant import QuantizedWeight
 from ..utils import matmul_f32, resolve_device
+from .ffn import refuse_training
 
 
 @dataclasses.dataclass
@@ -63,6 +64,7 @@ class LlamaFFNNetwork:
     def apply(self, params, x, ctx=None):
         """x: [E, rows, M] -> [E, rows, M]."""
         if isinstance(params["w1"], QuantizedWeight):
+            refuse_training(ctx)
             return self._apply_quantized(params, x, ctx)
         w1, w2, w3 = (params[k].to(x.dtype) for k in ("w1", "w2", "w3"))
         y1 = matmul_f32(x, w1).to(x.dtype)

@@ -1,10 +1,12 @@
 """Pluggable gate registry (counterpart: tutel_tpu/gates/__init__.py).
-This slice ports the 'top' gate."""
+Ported: the 'top' and 'cosine_top' gates."""
 
+from . import cosine_top  # noqa: F401
 from . import top  # noqa: F401
 
 _REGISTRY = {
     "top": top.Gate,
+    "cosine_top": cosine_top.Gate,
 }
 
 

@@ -1,4 +1,4 @@
-"""The MoE layer, single-device inference subset
+"""The MoE layer on one device, inference and training
 (counterpart: tutel_tpu/impls/moe_layer.py).
 
 Same calling convention as the JAX layer: `params = layer.init(...)`,
@@ -10,11 +10,20 @@ alignment and static capacity math (:376-395), `resolve_capacity` (:649),
 `count_needed_traceable` (:1264, world size 1) and `state_dict` /
 `load_state_dict` (:1444-1500).
 
+Training (`training=True`) runs under autograd: the gate noise is drawn
+from the `key` Generator (once a call, shared by the dropless capacity
+probe and the routing), the dispatch backward is `ops.dispatch`'s, the
+gradient of `l_aux` reaches the gate through the scores, megablocks is
+off, and `remat_experts=True` recomputes the experts' activations in the
+backward (`torch.utils.checkpoint`, as `jax.checkpoint`). When every token
+routes to every expert (top_k == E) and nothing is dropped, the layer
+takes the dense dispatch (`ops.dispatch.dense_encode` / `dense_decode`),
+as the JAX layer does on one device (:592-605).
+
 The JAX layer caches one compiled variant per static configuration; eager
 PyTorch switches between configurations per call with no cache. Dropless
 capacity is read from a routing probe with one host sync, as in the JAX
-layer outside a jit. Expert parallelism, the dense top_k == E dispatch
-shortcut and the training backward belong to later slices.
+layer outside a jit. Expert parallelism belongs to a later slice.
 """
 
 import logging
@@ -65,7 +74,7 @@ class MOELayer:
                  is_postscore=True, batch_prioritized_routing=False,
                  normalize_gate=True, is_gshard_loss=True,
                  dtype=torch.float32, capacity_bucket: int = 0,
-                 device="cuda", **kwargs):
+                 remat_experts=False, device="cuda", **kwargs):
         if model_dim % 2:
             raise ValueError("model_dim must be even, got %s" % model_dim)
         for k in kwargs:
@@ -79,6 +88,7 @@ class MOELayer:
         self.is_gshard_loss = is_gshard_loss
         self.dtype = dtype
         self.capacity_bucket = capacity_bucket
+        self.remat_experts = remat_experts
         self.seeds = seeds
 
         experts = dict(experts or {})
@@ -148,17 +158,28 @@ class MOELayer:
 
     # -- forward -------------------------------------------------------
 
+    def _draw_noise(self, shape, key, device):
+        """The training gate noise: standard normal float32 values drawn
+        from `key` (a torch.Generator; None = the default generator)."""
+        return torch.randn(shape, generator=key, device=device,
+                           dtype=torch.float32)
+
+    def _noise(self, gate_index, samples, training, key, device):
+        """This call's gate noise [samples, E], or None."""
+        if not (training and self.gates[gate_index].gate_noise > 0):
+            return None
+        return self._draw_noise((samples, self.num_global_experts), key,
+                                device)
+
     def _routing(self, gate_params, x, gate_index, top_k, capacity,
-                 training, key=None, token_mask=None, with_loss=True):
+                 noise=None, token_mask=None, with_loss=True):
         """logits -> (noised) scores -> extract_critical."""
         gate = self.gates[gate_index]
         logits = gate.apply(gate_params, x)
         logits_w_noise = logits
-        if training and gate.gate_noise > 0:
-            noise = torch.randn(logits.shape, generator=key,
-                                device=logits.device, dtype=logits.dtype)
-            logits_w_noise = logits + gate.gate_noise * noise \
-                / self.num_global_experts
+        if noise is not None:
+            logits_w_noise = logits + gate.gate_noise * noise.to(
+                logits.dtype) / self.num_global_experts
         scores = torch.softmax(logits_w_noise, dim=1)
         if not with_loss:
             loss_fn = None
@@ -209,6 +230,7 @@ class MOELayer:
         gate_params = params["gates"][gate_index]
 
         alignment = self._alignment(megablocks_size)
+        noise = self._noise(gate_index, samples, training, key, x2.device)
         if capacity_override is not None:
             capacity = routing_ops.align_capacity(int(capacity_override),
                                                   alignment)
@@ -217,7 +239,7 @@ class MOELayer:
                                              megablocks_size)
         else:
             needed = int(self._count_needed(gate_params, x2, gate_index,
-                                            top_k, training, key))
+                                            top_k, noise))
             capacity = max(1, needed)
             if cf < 0:
                 capacity = min(capacity, routing_ops.capped_capacity_limit(
@@ -236,7 +258,7 @@ class MOELayer:
                           < int(vt[0]))
 
         crit, l_aux = self._routing(gate_params, x2, gate_index, top_k,
-                                    capacity, training, key, token_mask)
+                                    capacity, noise, token_mask)
         # routed: the rows the experts get, known on the host (the fused
         # kernels plan their grid from it; the counts lie on the device)
         routed = top_k * (samples if valid_tokens is None
@@ -244,21 +266,38 @@ class MOELayer:
         ctx = SimpleNamespace(megablocks_size=megablocks_size,
                               dispatch_count=crit.dispatch_count,
                               num_global_experts=self.num_global_experts,
-                              routed=routed)
-        y = dispatch_ops.fast_encode(x2, crit, self.is_postscore)
-        y = self.experts.apply(params["experts"], y, ctx)
-        out = dispatch_ops.fast_decode(y, crit, self.is_postscore)
+                              routed=routed, training=training)
+        # every token at every expert, nothing dropped: a broadcast and a
+        # weighted sum take the place of the slot gathers
+        dense = (top_k == self.num_global_experts and capacity >= samples
+                 and megablocks_size == 0)
+        encode, decode = ((dispatch_ops.dense_encode,
+                           dispatch_ops.dense_decode) if dense else
+                          (dispatch_ops.fast_encode,
+                           dispatch_ops.fast_decode))
+        y = encode(x2, crit, self.is_postscore)
+        y = self._apply_experts(params["experts"], y, ctx)
+        out = decode(y, crit, self.is_postscore)
         out = out.reshape(*original_shape[:-reserve_dims],
                           *reserve_shape[:-1], -1)
         return out, l_aux
 
+    def _apply_experts(self, expert_params, y, ctx):
+        if self.remat_experts:
+            # keep no expert activations for the backward; recompute them
+            return torch.utils.checkpoint.checkpoint(
+                lambda p, t: self.experts.apply(p, t, ctx), expert_params, y,
+                use_reentrant=False)
+        return self.experts.apply(expert_params, y, ctx)
+
     # -- dropless capacity ---------------------------------------------
 
-    def _count_needed(self, gate_params, x2, gate_index, top_k, training,
-                      key=None, token_mask=None):
+    def _count_needed(self, gate_params, x2, gate_index, top_k, noise=None,
+                      token_mask=None):
         """Tensor scalar: the most tokens any expert receives."""
-        crit, _ = self._routing(gate_params, x2, gate_index, top_k, 1,
-                                training, key, token_mask, with_loss=False)
+        with torch.no_grad():
+            crit, _ = self._routing(gate_params, x2, gate_index, top_k, 1,
+                                    noise, token_mask, with_loss=False)
         return routing_ops.required_capacity(crit.dispatch_count)
 
     def resolve_capacity(self, params, x, key=None, gate_index=0, top_k=None,
@@ -267,9 +306,10 @@ class MOELayer:
         `capacity_override`."""
         gate = self.gates[gate_index]
         top_k = min(int(top_k or gate.top_k), self.num_global_experts)
+        x2 = self._flat(x, reserve_dims)
         needed = int(self._count_needed(
-            params["gates"][gate_index], self._flat(x, reserve_dims),
-            gate_index, top_k, training, key))
+            params["gates"][gate_index], x2, gate_index, top_k,
+            self._noise(gate_index, x2.shape[0], training, key, x2.device)))
         return routing_ops.align_capacity(max(1, needed),
                                           self._alignment(megablocks_size))
 
@@ -283,9 +323,10 @@ class MOELayer:
         tk = min(int(top_k or gate.top_k), self.num_global_experts)
 
         def fn(params, x2, key=None, token_mask=None):
-            return self._count_needed(params["gates"][gate_index], x2,
-                                      gate_index, tk, training, key,
-                                      token_mask)
+            return self._count_needed(
+                params["gates"][gate_index], x2, gate_index, tk,
+                self._noise(gate_index, x2.shape[0], training, key,
+                            x2.device), token_mask)
         return fn
 
     # -- checkpoint format ---------------------------------------------

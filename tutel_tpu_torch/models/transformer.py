@@ -1,13 +1,15 @@
-"""Decoder-only Transformer LM with MoE FFN blocks, inference and serving
-(counterpart: tutel_tpu/models/transformer.py:26-214, 576-1350).
+"""Decoder-only Transformer LM with MoE FFN blocks: training, inference and
+serving (counterpart: tutel_tpu/models/transformer.py:26-214, 576-1404).
 
 Same configuration, parameter tree and cache layout as the JAX model:
 `params = model.init(generator)`, `logits, l_aux = model.apply(params,
-tokens)`; the KV cache is one dict per block with flat slabs
-"k"/"v" [B, max_len, KVH * HD] (int8, or INT4 split-half packed bytes
-[B, max_len, KVH * HD / 2], with f32 scales "k_s"/"v_s" [B, KVH, max_len]
-when kv_bits is 8 or 4). Pre-LN blocks; every `moe_every`-th block's FFN is
-an MoE layer (`impls.moe_layer.MOELayer`, one device).
+tokens, key=None, training=False)`, and the training objective
+`loss, (nll, l_aux) = model.loss(params, tokens)`; the KV cache is one
+dict per block with flat slabs "k"/"v" [B, max_len, KVH * HD] (int8, or
+INT4 split-half packed bytes [B, max_len, KVH * HD / 2], with f32 scales
+"k_s"/"v_s" [B, KVH, max_len] when kv_bits is 8 or 4). Pre-LN blocks;
+every `moe_every`-th block's FFN is an MoE layer
+(`impls.moe_layer.MOELayer`, one device).
 
 The decode step has one structure on every device: each block's attention
 runs kernel K6 (`ops.decode_attn.decode_attn`) with the token's fresh K/V
@@ -18,13 +20,13 @@ runs kernel K7 (`ops.decode_attn.prefill_attn`) per block and prompt
 chunk. On CPU tensors those functions run their plain twins; on CUDA
 tensors they launch the kernels or raise. The cache is updated in place.
 
-Not ported (later slices): the training path (`loss`, `_nll*`), the
-sequence-parallel forward (`apply_seqpar`, `_attn_seqpar`,
-`_attn_ringpar`, `seqpar_specs`) and multi-device expert-parallel
-padding. The JAX model's kernel-mode switches and XLA fallback paths
-(`_attn_kernel_mode`, `_prefill_kernel_mode`, TUTEL_TPU_DECODE_ATTN,
-TUTEL_TPU_PREFILL_ATTN, TUTEL_TPU_SKIP_KV_WRITE, the VMEM budget of the
-batched write) were devices of the TPU compiler and are not ported.
+Not ported (later slices): the sequence-parallel forward (`apply_seqpar`,
+`_attn_seqpar`, `_attn_ringpar`, `seqpar_specs`) and multi-device
+expert-parallel padding. The JAX model's kernel-mode switches and XLA
+fallback paths (`_attn_kernel_mode`, `_prefill_kernel_mode`,
+TUTEL_TPU_DECODE_ATTN, TUTEL_TPU_PREFILL_ATTN, TUTEL_TPU_SKIP_KV_WRITE,
+the VMEM budget of the batched write) were devices of the TPU compiler and
+are not ported.
 """
 
 import dataclasses
@@ -202,25 +204,79 @@ class TransformerMoE:
         out = torch.einsum("bmgqk,bkgd->bqmgd", probs, v).reshape(b, t, d)
         return out @ block["wo"]
 
-    def apply(self, params, tokens, moe_overrides: Optional[dict] = None):
-        """tokens [B, T] -> (logits [B, T, V], l_aux_sum). Inference only."""
+    def _layer_keys(self, key):
+        """{MoE block index: its own torch.Generator} for the gate noise,
+        seeded from draws of `key` (the JAX model folds its key with the
+        block index); None gives every layer the default generator."""
+        if key is None:
+            return dict.fromkeys(self.moe_layers)
+        seeds = torch.randint(0, 2 ** 62, (len(self.moe_layers),),
+                              generator=key, device=key.device).tolist()
+        return {i: torch.Generator(device=self.device).manual_seed(sd)
+                for i, sd in zip(self.moe_layers, seeds)}
+
+    def apply(self, params, tokens, key=None, training=False,
+              moe_overrides: Optional[dict] = None):
+        """tokens [B, T] -> (logits [B, T, V], l_aux_sum). key: a
+        torch.Generator for the training gate noise."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b, t = tokens.shape
         x = (params["embed"][tokens] + params["pos"][None, :t]).to(cfg.dtype)
         l_aux_sum = torch.zeros((), device=self.device)
         ov = dict(moe_overrides or {})
+        keys = self._layer_keys(key if training else None)
         for i, block in enumerate(params["blocks"]):
             x = x + self._attn(block, self._ln(block["ln1"], x))
             h = self._ln(block["ln2"], x)
             if i in self.moe_layers:
-                out, l_aux = self._moe_call(i, block["moe"], h, **ov)
+                out, l_aux = self._moe_call(i, block["moe"], h, key=keys[i],
+                                            training=training, **ov)
                 x = x + out
                 l_aux_sum = l_aux_sum + l_aux.float()
             else:
                 x = x + self._ffn(block["ffn"], h)
         return self._logits(params, self._ln(params["final_ln"], x)), \
             l_aux_sum
+
+    def loss(self, params, tokens, key=None, training=True, l_aux_wt=0.01,
+             moe_overrides=None):
+        """Next-token cross-entropy plus the weighted aux loss: returns
+        (loss, (nll, l_aux)). Tokens up to max_len long run the full
+        sequence and drop the last position's logits; longer ones (a
+        dataset sized max_len + 1 for the shift) run tokens[:, :-1]."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        if tokens.shape[1] > self.cfg.max_len:
+            logits, l_aux = self.apply(params, tokens[:, :-1], key=key,
+                                       training=training,
+                                       moe_overrides=moe_overrides)
+            nll = self._nll(logits, tokens[:, 1:])
+        else:
+            logits, l_aux = self.apply(params, tokens, key=key,
+                                       training=training,
+                                       moe_overrides=moe_overrides)
+            nll = self._nll_shifted(logits, tokens)
+        return nll + l_aux_wt * l_aux, (nll, l_aux)
+
+    @staticmethod
+    def _nll_shifted(logits, tokens):
+        """Shifted next-token nll over full-sequence logits: the [B, T]
+        per-position losses are sliced, not the [B, T, V] logits."""
+        tpad = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        return torch.mean(TransformerMoE._token_nll(logits, tpad)[:, :-1])
+
+    @staticmethod
+    def _nll(logits, targets):
+        """mean(logsumexp - target logit): the cross-entropy, reduced in
+        float32 with no [B, T, V] log-probability tensor."""
+        return torch.mean(TransformerMoE._token_nll(logits, targets))
+
+    @staticmethod
+    def _token_nll(logits, targets):
+        """[B, T] logsumexp(logits) - logits[target], in float32."""
+        lse = torch.logsumexp(logits.float(), dim=-1)              # [B, T]
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return lse - tgt.float()
 
     # ------------------------------------------------------------------
     # Incremental decode (KV cache): the serving path
