@@ -4,8 +4,9 @@ example's own parameters (`layer.init(PRNGKey(1))`) and input
 (`normal(PRNGKey(0))`) through `convert.from_jax_params`, reproduces the
 six golden loss trajectories of tests/golden_helloworld.json, which the
 JAX example reproduces in tests/test_helloworld.py: within 1e-4 in
-float32 and 1e-2 in bfloat16 (the tolerances of that test). Flags of
-later slices raise."""
+float32 and 1e-2 in bfloat16 (the tolerances of that test). The
+expert-parallel flags run at one rank with the plain run's losses; flags
+of later slices raise."""
 
 import json
 import os
@@ -88,10 +89,28 @@ def test_eval_runs_the_forward_only():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num_devices", "2"], ["--parallel_type", "data"], ["--use_2dh"],
-    ["--a2a_ffn_overlap_degree", "2"], ["--checkpoint_path", "ck.npz"],
+    ["--num_devices", "2"], ["--checkpoint_path", "ck.npz"],
     ["--use_scan"]])
 def test_flags_of_later_slices_raise(flag):
+    """--num_devices must equal the world size (one rank here); checkpoint
+    files belong to the next slice; --use_scan is a JAX compile strategy."""
     args = helloworld.build_args(BASE + flag)
     with pytest.raises(ValueError, match=flag[0]):
         helloworld.run(args, log=lambda *_: None)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--parallel_type", "data"], ["--parallel_type", "model"],
+    ["--parallel_type", "auto"], ["--use_2dh"],
+    ["--a2a_ffn_overlap_degree", "2"]])
+def test_parallel_flags_run_at_one_rank(flag):
+    """The expert-parallel flags run without a process group; at one rank
+    they all take the one-device body, so the losses are the plain run's
+    bit for bit (the multi-rank runs: tests/test_torch_ep.py)."""
+    args = helloworld.build_args(BASE + ["--num_steps", "3"])
+    params, x = _jax_start(args)
+    plain, _ = helloworld.run(args, log=lambda *_: None, params=params, x=x)
+    got, _ = helloworld.run(helloworld.build_args(
+        BASE + ["--num_steps", "3"] + flag), log=lambda *_: None,
+        params=params, x=x)
+    assert got == plain

@@ -117,7 +117,12 @@ def test_layer_construction_matches_jax():
     assert tl.num_global_experts == E and tl.gates[0].top_k == 2
     params = tl.init()
     assert params["gates"][0]["wg"].shape == (32, E)
+    # use_2dh is a constructor argument since the sharded layer; an
+    # unknown one still raises
+    tmoe.moe_layer(gate_type="Top2Gate", model_dim=32, device="cpu",
+                   experts={"type": "ffn", "hidden_size_per_expert": 8},
+                   use_2dh=True)
     with pytest.raises(TypeError):
         tmoe.moe_layer(gate_type="Top2Gate", model_dim=32, device="cpu",
                        experts={"type": "ffn", "hidden_size_per_expert": 8},
-                       use_2dh=True)
+                       use_ragged_ep=True)

@@ -7,7 +7,14 @@ becomes the port's `QuantizedWeight` (values, scales, bits, orig_k,
 blocks) and a `FusedFFNStream` the port's stream with the same arrays and
 tile metadata. The JAX classes are recognised by their fields, so this
 module imports nothing of the JAX package.
+
+`take_shard(value, dim, count, index)` is the slice of a global parameter
+that one rank holds (the sharded `MOELayer.shard_params` takes it), so the
+same global weights sit in both packages.
 """
+
+import dataclasses
+
 
 import numpy as np
 import torch
@@ -52,3 +59,31 @@ def from_jax_params(tree, device="cuda"):
     if tree is None:
         return None
     return to_tensor(tree, device)
+
+
+def take_shard(value, dim, count, index):
+    """The `index`-th of `count` equal slices of `value` along `dim`. A
+    `QuantizedWeight` slices its values, and its scales where their dim is
+    not 1; a `FusedFFNStream` slices its stream and scales on dim 0 (the
+    expert dim) only."""
+    if count == 1:
+        return value
+    if isinstance(value, FusedFFNStream):
+        if dim != 0:
+            raise ValueError("a fused weight stream shards on the expert "
+                             "dim only")
+        return dataclasses.replace(
+            value, wstream=take_shard(value.wstream, 0, count, index),
+            sb=take_shard(value.sb, 0, count, index))
+    if isinstance(value, QuantizedWeight):
+        scales = value.scales
+        if scales.shape[dim] != 1:
+            scales = take_shard(scales, dim, count, index)
+        return dataclasses.replace(
+            value, values=take_shard(value.values, dim, count, index),
+            scales=scales)
+    if value.shape[dim] % count:
+        raise ValueError(f"dim {dim} of {tuple(value.shape)} does not "
+                         f"split into {count} shards")
+    size = value.shape[dim] // count
+    return value.narrow(dim, index * size, size).contiguous()

@@ -11,12 +11,21 @@ formula. step_time is host time around a step that ends in
 Run:  python -m tutel_tpu_torch.examples.helloworld --batch_size 16
           --num_tokens 512 --model_dim 2048 --hidden_size 2048
           --num_local_experts 2 --dtype float32 --top 2 [--device cpu]
+Over N ranks (one process a rank; gloo for --device cpu, nccl for cuda):
+      torchrun --nproc_per_node N -m tutel_tpu_torch.examples.helloworld
+          --device cpu --num_devices N [--parallel_type data|model|auto|
+          adaptive:r] [--use_2dh] [--a2a_ffn_overlap_degree D] ...
 
-`run(args, params=..., x=...)` takes a parameter tree and an input from
-elsewhere (the tests pass the JAX example's, through
+`run(args, params=..., x=...)` takes the global parameter tree and input
+from elsewhere (the tests pass the JAX example's, through
 `convert.from_jax_params`); without them the port seeds its own
-generators, as `start(args, device)` does. Flags of later slices raise
-(`UNSUPPORTED`).
+generators, as `start(args, device)` does. The run joins the process group
+the environment describes (`system.init_data_model_parallel`);
+`--num_devices` must equal its world size. Each rank holds its shard of
+the parameters (`MOELayer.shard_params`) and its rows of the global batch
+(batch_size / W of them), and its loss is its share of the global loss
+(the mean over the global token axis): the ranks' losses sum to JAX's, and
+the logged loss is that sum. Flags of later slices raise (`UNSUPPORTED`).
 """
 
 import argparse
@@ -24,19 +33,14 @@ import time
 
 import torch
 
-from tutel_tpu_torch import moe
+from tutel_tpu_torch import moe, net, system
 from tutel_tpu_torch.utils import resolve_device, sgd_step
 
 # flag -> why it raises here (the slice of the port that brings it)
 UNSUPPORTED = {
-    "num_devices": "more than one device needs expert parallelism (slice 5)",
-    "parallel_type": "parallel types other than adaptive:1 need expert "
-                     "parallelism (slice 5)",
-    "use_2dh": "the two-level all-to-all needs expert parallelism (slice 5)",
-    "a2a_ffn_overlap_degree": "the all-to-all / FFN overlap needs expert "
-                              "parallelism (slice 5)",
     "checkpoint_path": "checkpoint files come with the launcher and "
-                       "checkpoint tools (slice 5)",
+                       "checkpoint tools (the next slice of expert "
+                       "parallelism)",
     "use_scan": "one jit over all steps is a JAX compile strategy; this "
                 "loop already times synchronized steps",
 }
@@ -69,11 +73,7 @@ def build_args(argv=None):
 
 
 def _refuse_unsupported(args):
-    given = {"num_devices": args.num_devices > 1,
-             "parallel_type": args.parallel_type != "adaptive:1",
-             "use_2dh": args.use_2dh,
-             "a2a_ffn_overlap_degree": args.a2a_ffn_overlap_degree > 1,
-             "checkpoint_path": bool(args.checkpoint_path),
+    given = {"checkpoint_path": bool(args.checkpoint_path),
              "use_scan": args.use_scan}
     for flag, on in given.items():
         if on:
@@ -84,8 +84,9 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64,
           "float16": torch.float16, "bfloat16": torch.bfloat16}
 
 
-def build_layer(args, device):
-    """The example's MoE layer for these flags, on `device`."""
+def build_layer(args, device, env=None):
+    """The example's MoE layer for these flags, on `device`, over the
+    world of `env` (None: the default process group, or one rank)."""
     return moe.moe_layer(
         gate_type={"type": "top", "k": args.top, "fp32_gate": args.fp32_gate,
                    "capacity_factor": args.capacity_factor},
@@ -93,13 +94,15 @@ def build_layer(args, device):
                  "num_experts_per_device": args.num_local_experts,
                  "hidden_size_per_expert": args.hidden_size},
         model_dim=args.model_dim, seeds=(1, 1, 1), dtype=DTYPES[args.dtype],
+        a2a_ffn_overlap_degree=args.a2a_ffn_overlap_degree,
+        parallel_type=args.parallel_type, use_2dh=args.use_2dh, group=env,
         device=device)
 
 
 def start(args, device, layer=None):
-    """A run's seeded initial parameters and input, drawn on `device` (the
-    CPU gives the same start to runs on two devices): parameters from
-    seed 1, x from seed 0."""
+    """A run's seeded global parameters and input, drawn on `device` (the
+    CPU gives the same start to runs on two devices, and every rank the
+    same): parameters from seed 1, x from seed 0."""
     device = torch.device(device)
     layer = build_layer(args, device) if layer is None else layer
     params = layer.init(torch.Generator(device=device).manual_seed(1))
@@ -110,15 +113,27 @@ def start(args, device, layer=None):
 
 
 def run(args, log=print, params=None, x=None):
-    """Build the layer and run the loop; returns (per-step losses, average
-    synchronized step time in seconds over the last 10 steps)."""
+    """Build the layer and run the loop from the global `params` and `x`;
+    returns (per-step global losses, average synchronized step time in
+    seconds over the last 10 steps)."""
     _refuse_unsupported(args)
     device = resolve_device(args.device)
-    layer = build_layer(args, device)
+    env = system.init_data_model_parallel(device=device)
+    world = env.global_size
+    if args.num_devices and args.num_devices != world:
+        raise ValueError(f"--num_devices {args.num_devices}: the process "
+                         f"group has {world} ranks")
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"over {world} ranks")
+    layer = build_layer(args, device, env)
     if params is None or x is None:
         seeded = start(args, device, layer)
         params = seeded[0] if params is None else params
         x = seeded[1] if x is None else x
+    params = layer.shard_params(params)
+    b = args.batch_size // world
+    x = x[env.global_rank * b:(env.global_rank + 1) * b]
 
     num_global_experts = layer.num_global_experts
     local_count = sum(p.numel() for _, p in
@@ -130,17 +145,18 @@ def run(args, log=print, params=None, x=None):
 
     key = torch.Generator(device=device).manual_seed(1)
     lr = 1e-5
+    share = b / args.batch_size          # this rank's part of the mean
 
     def loss_fn(params):
         out, l_aux = layer(params, x, key=key, training=not args.eval,
                            megablocks_size=args.megablocks_size)
         logits = torch.log_softmax(torch.sum(out.float(), dim=2), dim=1)
-        loss = -torch.mean(logits[:, 0])
+        loss = -torch.mean(logits[:, 0]) * share
         if args.l_aux_wt:
-            loss = loss + args.l_aux_wt * l_aux
+            loss = loss + args.l_aux_wt * l_aux / world
         return loss
 
-    tuples = (1, args.dtype, args.model_dim, args.hidden_size,
+    tuples = (world, args.dtype, args.model_dim, args.hidden_size,
               args.batch_size * args.num_tokens, args.num_local_experts,
               args.top, args.a2a_ffn_overlap_degree, args.parallel_type,
               device.type)
@@ -159,6 +175,8 @@ def run(args, log=print, params=None, x=None):
             params, loss, _ = sgd_step(loss_fn, params, lr)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        if world > 1:
+            loss = net.simple_all_reduce(loss.detach())
         t_stop = time.perf_counter()
 
         mm_ceof = 1 if args.eval else 3
@@ -180,7 +198,12 @@ def run(args, log=print, params=None, x=None):
 
 
 def main():
-    run(build_args())
+    args = build_args()
+    try:
+        env = system.init_data_model_parallel(device=args.device)
+        run(args, log=env.dist_print)          # rank 0 prints
+    finally:
+        system.destroy()
 
 
 if __name__ == "__main__":

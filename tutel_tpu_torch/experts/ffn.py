@@ -6,8 +6,14 @@ the JAX package leaves these to XLA); quantized weights
 (`ops.quant.QuantizedWeight`) run `ops.grouped_gemm_quant.quantized_ffn`,
 which launches the CUDA kernels K2 or K1 for CUDA tensors, or, with
 `activation_bits=8` (W8A8 / W4A8), `ops.w8a8.w8a8_ffn`, which launches K3
-or K5. Float weights ignore `activation_bits`, as in the JAX package.
-The default activation is relu.
+or K5. Float weights ignore `activation_bits`, as in the JAX package;
+with `ctx.megablocks_size > 0` they take the dropless grouped-GEMM branch
+(`ops.grouped_gemm.megablocks_ffn`). The default activation is relu.
+
+`sharded_count` is the number of ranks that slice one expert's hidden
+dim (expert-slicing tensor parallelism); it must divide the hidden size.
+`init` always makes the global parameters; `apply` follows the shapes it
+is given.
 
 The float path trains under autograd. Quantized weights are for
 inference only: a call with `ctx.training` raises (the JAX package's
@@ -20,6 +26,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..ops.activations import relu
+from ..ops.grouped_gemm import megablocks_ffn
 from ..ops.grouped_gemm_quant import quantized_ffn
 from ..ops.quant import QuantizedWeight
 from ..ops.w8a8 import w8a8_ffn
@@ -31,6 +38,7 @@ class FusedExpertsNetwork:
     model_dim: int
     hidden_size_per_expert: int
     num_experts_per_device: int = 1
+    sharded_count: int = 1
     activation_fn: Optional[Callable] = None
     output_dim: Optional[int] = None
     has_fc1_bias: bool = True
@@ -38,6 +46,11 @@ class FusedExpertsNetwork:
     activation_bits: int = 0       # 8 = W8A8 integer-domain GEMMs
 
     def __post_init__(self):
+        if self.hidden_size_per_expert % self.sharded_count:
+            raise ValueError(
+                f"Can't evenly divide hidden_size_per_expert "
+                f"({self.hidden_size_per_expert}) to {self.sharded_count} "
+                f"slices.")
         self.output_dim = self.output_dim or self.model_dim
         if self.activation_fn is None:
             self.activation_fn = relu
@@ -69,6 +82,9 @@ class FusedExpertsNetwork:
             ffn = w8a8_ffn if self.activation_bits == 8 else quantized_ffn
             return ffn(x, params, ctx, activation_fn=self.activation_fn,
                        output_dim=self.output_dim)
+        if getattr(ctx, "megablocks_size", 0) > 0:
+            return megablocks_ffn(x, params, ctx, self.activation_fn,
+                                  self.output_dim)
         fc1_b, fc2_b = params.get("fc1_b"), params.get("fc2_b")
         y = torch.bmm(x, fc1_w.to(x.dtype))
         if fc1_b is not None:

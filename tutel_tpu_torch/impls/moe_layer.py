@@ -1,31 +1,57 @@
-"""The MoE layer on one device, inference and training
-(counterpart: tutel_tpu/impls/moe_layer.py).
+"""The MoE layer, inference and training, on one device or sharded over
+the ranks of a process group (counterpart: tutel_tpu/impls/moe_layer.py).
 
 Same calling convention as the JAX layer: `params = layer.init(...)`,
-`out, l_aux = layer(params, x, ...)`. Ported: construction and
-`global_expert_count` (:77), `init`, the forward with per-call
-`capacity_factor` (padded > 0, dropless == 0, capped < 0), `top_k`,
-`capacity_override`, scalar `valid_tokens` and `megablocks_size`, the
-alignment and static capacity math (:376-395), `resolve_capacity` (:649),
-`count_needed_traceable` (:1264, world size 1) and `state_dict` /
+`out, l_aux = layer(params, x, ...)`. Ported: construction with the
+expert-count math (`global_expert_count` :77, fractional and negative
+counts, `sharded_count`, `valid_rs`, the data / model / auto /
+adaptive:r parallel types :153-190), `init`, `shard_params`, the forward
+with per-call `capacity_factor` (padded > 0, dropless == 0, capped < 0),
+`top_k`, `capacity_override`, `a2a_ffn_overlap_degree`, `adaptive_r`,
+`valid_tokens` (with `inequivalent_tokens`) and `megablocks_size`, the
+alignment and static capacity math (:376-395), `resolve_capacity`
+(:649), `count_needed_traceable` (:1264) and `state_dict` /
 `load_state_dict` (:1444-1500).
+
+Sharding. The layer's world is the process group it is given (`group`:
+a `system.ParallelEnv`, a process group or a list of ranks; None = the
+default group, or one rank without one). Each rank calls the layer with
+its own rows of the global token batch (rank i holds rows [i*S, (i+1)*S)
+of the flattened input) and its own shard of the parameters
+(`shard_params` of the global ones), and gets its rows of the output.
+The token-choice body follows the JAX body (:1099-1180): one rank; r == 0
+(data-parallel experts: the expert weights all-gathered, :889-952);
+expert parallelism with the tile and reshape for E < W; the chunked
+a2a/FFN overlap; the `a2a_dtype` cast around the exchange; the two-level
+exchange (`use_2dh`); `l_aux` averaged over the world. The dropless
+capacity is the largest over the world (one all-reduce MAX after the
+local probe). Quantized expert weights run under pure expert
+parallelism (`sharded_count == 1`) only.
+
+Gradients. The collectives are `net`'s autograd Functions, so
+`loss.backward()` on every rank, with `loss` this rank's share of the
+global loss, sends the cotangents back through the exchanges. The gate
+parameters are replicated: the layer passes them through
+`net.allreduce_backward`, so their gradient on every rank is the sum over
+ranks, the global gradient (JAX's transpose of a replicated shard_map
+input).
 
 Training (`training=True`) runs under autograd: the gate noise is drawn
 from the `key` Generator (once a call, shared by the dropless capacity
-probe and the routing), the dispatch backward is `ops.dispatch`'s, the
-gradient of `l_aux` reaches the gate through the scores, megablocks is
-off, and `remat_experts=True` recomputes the experts' activations in the
-backward (`torch.utils.checkpoint`, as `jax.checkpoint`). When every token
-routes to every expert (top_k == E) and nothing is dropped, the layer
-takes the dense dispatch (`ops.dispatch.dense_encode` / `dense_decode`),
-as the JAX layer does on one device (:592-605).
+probe and the routing; over a world, every rank draws the whole batch's
+noise and keeps its rows), the dispatch backward is `ops.dispatch`'s,
+megablocks is off, and `remat_experts=True` recomputes the experts'
+activations in the backward. When every token routes to every expert
+(top_k == E) and nothing is dropped, one rank takes the dense dispatch,
+as the JAX layer does (:592-605).
 
 The JAX layer caches one compiled variant per static configuration; eager
 PyTorch switches between configurations per call with no cache. Dropless
 capacity is read from a routing probe with one host sync, as in the JAX
-layer outside a jit. Expert parallelism belongs to a later slice.
+layer outside a jit.
 """
 
+import dataclasses
 import logging
 import math
 import re
@@ -34,22 +60,47 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import experts as experts_registry
 from .. import gates as gates_registry
-from ..convert import to_tensor
+from .. import net
+from ..convert import take_shard, to_tensor
 from ..ops import dispatch as dispatch_ops
 from ..ops import losses as losses_ops
 from ..ops import routing as routing_ops
+from ..ops.fused_ffn import FusedFFNStream
+from ..ops.quant import QuantizedWeight
+from ..parallel import mesh as mesh_lib
 from ..utils import resolve_device
+
+# param name -> (expert dim, shard dim) of the expert parameters
+SHARD_AXES = {"fc1_w": (0, 2), "fc1_b": (0, 1), "fc2_w": (0, 1),
+              "fc2_b": (0, 1), "w1": (0, 2), "w2": (0, 2), "w3": (0, 1)}
+
+QUANT_TP = ("quantized expert weights under expert-slicing tensor "
+            "parallelism (sharded_count={}) belong to the next slice of the "
+            "port (K-sliced INT4 blocks); use pure expert parallelism")
 
 
 def _lcm(a, b):
     return a * b // math.gcd(a, b)
 
 
+def _world_ranks(group):
+    """The ranks of the layer's world for a `group` argument."""
+    if group is None:
+        return mesh_lib.default_ranks()
+    if hasattr(group, "ranks"):                       # system.ParallelEnv
+        return tuple(group.ranks)
+    if isinstance(group, dist.ProcessGroup):
+        return tuple(dist.get_process_group_ranks(group))
+    return tuple(group)
+
+
 class MOELayer:
-    """Tutel-capability MoE layer, PyTorch on one device."""
+    """Tutel-capability MoE layer in PyTorch, on one device or sharded over
+    a process group."""
 
     @staticmethod
     def global_expert_count(num_local_experts, world_size=1):
@@ -71,9 +122,11 @@ class MOELayer:
         return world_size // -num_local_experts
 
     def __init__(self, gate_type, model_dim: int, experts=None, seeds=None,
-                 is_postscore=True, batch_prioritized_routing=False,
-                 normalize_gate=True, is_gshard_loss=True,
-                 dtype=torch.float32, capacity_bucket: int = 0,
+                 group=None, a2a_ffn_overlap_degree=1, is_postscore=True,
+                 batch_prioritized_routing=False, normalize_gate=True,
+                 is_gshard_loss=True, parallel_type="adaptive:1",
+                 use_2dh=False, dtype=torch.float32, a2a_dtype=None,
+                 capacity_bucket: int = 0, num_hosts=None,
                  remat_experts=False, device="cuda", **kwargs):
         if model_dim % 2:
             raise ValueError("model_dim must be even, got %s" % model_dim)
@@ -86,24 +139,68 @@ class MOELayer:
         self.batch_prioritized_routing = batch_prioritized_routing
         self.normalize_gate = normalize_gate
         self.is_gshard_loss = is_gshard_loss
+        self.a2a_ffn_overlap_degree = a2a_ffn_overlap_degree
+        self.use_2dh = use_2dh
         self.dtype = dtype
+        self.a2a_dtype = a2a_dtype
         self.capacity_bucket = capacity_bucket
         self.remat_experts = remat_experts
         self.seeds = seeds
 
+        # -- world ------------------------------------------------------
+        self.ranks = _world_ranks(group)
+        self.world_size = len(self.ranks)
+        self.rank_index = (self.ranks.index(mesh_lib.this_rank())
+                           if self.world_size > 1 else 0)
+        if self.world_size > 1 and dist.get_backend() == "nccl" \
+                and self.device.type != "cuda":
+            raise ValueError("an NCCL process group needs device='cuda'")
+        self.num_hosts = mesh_lib.infer_num_hosts(self.ranks, num_hosts)
+
+        # -- expert-count math (:153-190) ---------------------------------
         experts = dict(experts or {})
         self.num_local_experts = experts.pop(
             "count_per_node", experts.pop("num_experts_per_device", 1))
         if self.num_local_experts == -1:
             self.num_local_experts = 1
         self.num_global_experts = MOELayer.global_expert_count(
-            self.num_local_experts)
+            self.num_local_experts, self.world_size)
+        if self.num_global_experts < self.world_size:
+            self.sharded_count = self.world_size // self.num_global_experts
+            self.num_local_experts = 1
+        else:
+            self.sharded_count = 1
+        self.auto_parallel, self.adaptive_degree = False, self.sharded_count
+        self.valid_rs = [0] + [i for i in range(1, self.sharded_count + 1)
+                               if self.sharded_count % i == 0]
+        if parallel_type.startswith("adaptive:"):
+            self.adaptive_degree = min(max(int(
+                parallel_type.split(":", 1)[1]), 0), self.sharded_count)
+            if self.adaptive_degree not in self.valid_rs:
+                raise ValueError(
+                    "Unexpected value of adaptive_degree: %d, expecting a "
+                    "candidate within %s." % (self.adaptive_degree,
+                                              self.valid_rs))
+        elif self.sharded_count == 1:
+            pass
+        elif parallel_type in ("data", "model"):
+            self.adaptive_degree = (1 if parallel_type == "data"
+                                    else self.sharded_count)
+        elif parallel_type == "auto":
+            self.auto_parallel, self.adaptive_degree = True, 1
+        else:
+            raise ValueError(
+                "Unrecognized parallel type specified: %s" % parallel_type)
+
         experts_type = experts.pop("type")
         expert_cls = (experts.pop("module") if experts_type == "custom"
                       else experts_registry.resolve(experts_type))
+        # the global view: `init` makes the global parameters; `apply`
+        # follows the shapes of the shard it is given
         self.experts = expert_cls(
             model_dim=self.model_dim,
-            num_experts_per_device=self.num_global_experts, **experts)
+            num_experts_per_device=self.num_global_experts,
+            sharded_count=self.sharded_count, **experts)
 
         if isinstance(gate_type, str):
             if not re.match(r"^Top[0-9]+Gate$", gate_type):
@@ -121,11 +218,26 @@ class MOELayer:
                 model_dim=self.model_dim,
                 num_global_experts=self.num_global_experts, **single))
 
+        # every mesh this layer can use, built now on every rank in one
+        # order, so a per-call adaptive_r switch creates no group
+        self._meshes, self._world_group = {}, None
+        if self.world_size > 1:
+            for r in sorted({max(r, 1) for r in self.valid_rs}):
+                self._meshes[r] = mesh_lib.MoeMesh(
+                    self.ranks, self.world_size // self.sharded_count,
+                    self.sharded_count, r).build()
+            self._world_group = self._meshes[1].group(
+                mesh_lib.MoeMesh.EP_AXES)
+            if self._flat_2dh():
+                self._hmesh = mesh_lib.HierarchicalMesh(
+                    self.ranks, self.num_hosts).build()
+
     # -- parameters ----------------------------------------------------
 
     def init(self, generator=None) -> Dict[str, Any]:
-        """Parameters on the layer's device. Without a generator, the gate
-        and expert weights come from generators seeded by `seeds`."""
+        """Global parameters on the layer's device. Without a generator,
+        the gate and expert weights come from generators seeded by
+        `seeds`."""
         if generator is None:
             seeds = self.seeds or (1, 1, 1)
             gate_gen = torch.Generator(device=self.device).manual_seed(
@@ -140,21 +252,52 @@ class MOELayer:
                                           device=self.device)
         return {"gates": gate_params, "experts": expert_params}
 
+    def shard_params(self, params, adaptive_r=None):
+        """This rank's shard of the global parameters, as the JAX layer
+        places them (`_expert_specs` :260-283): under pure expert
+        parallelism the expert dim over the world; under expert slicing
+        (`sharded_count` > 1) the expert dim over 'e' and the shard dim
+        over ('r', 'g'), whose flat index does not depend on r. Gates stay
+        whole (replicated). One rank: the params as they are."""
+        if self.world_size == 1:
+            return params
+        w, sc, pos = self.world_size, self.sharded_count, self.rank_index
+        out = {}
+        for name, v in params["experts"].items():
+            e_dim, s_dim = SHARD_AXES.get(name, (0, None))
+            if sc == 1:
+                out[name] = take_shard(v, e_dim, w, pos)
+                continue
+            if isinstance(v, (QuantizedWeight, FusedFFNStream)):
+                raise ValueError(QUANT_TP.format(sc))
+            v = take_shard(v, e_dim, w // sc, pos // sc)
+            if s_dim is not None:
+                v = take_shard(v, s_dim, sc, pos % sc)
+            out[name] = v
+        return {**params, "experts": out}
+
     # -- capacity math -------------------------------------------------
 
-    def _alignment(self, megablocks_size):
-        alignment = max(megablocks_size, 1)
+    def _flat_2dh(self):
+        return self.use_2dh and self.sharded_count == 1
+
+    def _alignment(self, overlap_degree, megablocks_size):
+        mega_up = max(megablocks_size, 1)
+        base = self.sharded_count * overlap_degree
+        alignment = (base + mega_up - 1) // mega_up * mega_up
         if alignment > 256:
             alignment = (alignment + 127) // 128 * 128
+        # the reshape and chunk steps need capacity % (sharded*degree) == 0
+        alignment = _lcm(alignment, base)
         if self.capacity_bucket:
             alignment = _lcm(alignment, self.capacity_bucket)
         return alignment
 
     def _static_capacity(self, samples, top_k, capacity_factor,
-                         megablocks_size):
+                         megablocks_size, overlap_degree=1):
         return routing_ops.compute_static_capacity(
             samples, self.num_global_experts, top_k, capacity_factor,
-            alignment=self._alignment(megablocks_size))
+            alignment=self._alignment(overlap_degree, megablocks_size))
 
     # -- forward -------------------------------------------------------
 
@@ -165,11 +308,16 @@ class MOELayer:
                            dtype=torch.float32)
 
     def _noise(self, gate_index, samples, training, key, device):
-        """This call's gate noise [samples, E], or None."""
+        """This call's gate noise [samples, E] for this rank's rows, or
+        None: over a world, the noise of the whole batch is drawn and this
+        rank keeps its rows."""
         if not (training and self.gates[gate_index].gate_noise > 0):
             return None
-        return self._draw_noise((samples, self.num_global_experts), key,
-                                device)
+        noise = self._draw_noise(
+            (self.world_size * samples, self.num_global_experts), key,
+            device)
+        return noise[self.rank_index * samples:
+                     (self.rank_index + 1) * samples]
 
     def _routing(self, gate_params, x, gate_index, top_k, capacity,
                  noise=None, token_mask=None, with_loss=True):
@@ -202,20 +350,60 @@ class MOELayer:
             flat_m *= int(d)
         return x.reshape(-1, flat_m).to(self.dtype)
 
+    def _token_mask(self, valid_tokens, samples, device):
+        """This rank's [samples] mask of valid rows, or None. A scalar is
+        the global count over the packed batch (rank i owns rows
+        [i*S, (i+1)*S)); a [world] vector gives each rank's count."""
+        if valid_tokens is None:
+            return None, samples
+        vt = torch.as_tensor(valid_tokens).reshape(-1)
+        if vt.numel() == 1:
+            n = int(vt[0]) - self.rank_index * samples
+        elif vt.numel() == self.world_size:
+            n = int(vt[self.rank_index])
+        else:
+            raise ValueError(
+                f"valid_tokens must be a scalar or a [world_size="
+                f"{self.world_size}] vector, got {vt.numel()} values")
+        n = min(max(n, 0), samples)
+        return torch.arange(samples, device=device) < n, n
+
     def __call__(self, params, x, key=None, gate_index=0,
-                 capacity_factor=None, top_k=None, reserve_dims=1,
-                 valid_tokens=None, megablocks_size=0, training=False,
+                 capacity_factor=None, top_k=None,
+                 a2a_ffn_overlap_degree=None, reserve_dims=1,
+                 inequivalent_tokens=False, valid_tokens=None,
+                 adaptive_r=None, megablocks_size=0, training=False,
                  capacity_override=None):
-        """Forward pass. Returns (output, l_aux).
+        """Forward pass of this rank's rows. Returns (output, l_aux).
 
         key: a torch.Generator for the training gate noise (None = the
-        default generator). valid_tokens: rows [0, n) of the flattened
-        input are tokens, the tail is padding that takes no expert slot,
-        adds nothing to l_aux and comes out as zeros.
+        default generator). valid_tokens: a scalar count of valid rows of
+        the global packed batch, or a [world] vector of each rank's count
+        (the form `inequivalent_tokens=True` needs); padding rows take no
+        expert slot, add nothing to l_aux and come out as zeros.
+        a2a_ffn_overlap_degree and adaptive_r stay set for later calls, as
+        in the JAX layer.
         """
+        if inequivalent_tokens and valid_tokens is None:
+            raise ValueError(
+                "inequivalent_tokens=True: per-rank token counts differ, "
+                "but no validity data was given; pass valid_tokens (a "
+                "scalar global count or [world_size] per-rank counts) so "
+                "padding rows are masked out.")
         gate = self.gates[gate_index]
+        if a2a_ffn_overlap_degree is not None:
+            self.a2a_ffn_overlap_degree = a2a_ffn_overlap_degree
+        deg = self.a2a_ffn_overlap_degree
         top_k = min(int(top_k or gate.top_k), self.num_global_experts)
-        if megablocks_size > 0 and (self.num_local_experts <= 1 or training):
+        if adaptive_r is not None:
+            self.adaptive_degree = adaptive_r
+        if self.adaptive_degree not in self.valid_rs:
+            raise ValueError(f"adaptive_r={self.adaptive_degree} not within "
+                             f"valid candidates {self.valid_rs}")
+        w = self.world_size
+        # megablocks narrows one device's local experts at inference
+        if megablocks_size > 0 and (self.num_local_experts <= 1 or training
+                                    or w > 1):
             megablocks_size = 0
         cf = capacity_factor if capacity_factor is not None \
             else gate.capacity_factor
@@ -228,15 +416,19 @@ class MOELayer:
         x2 = self._flat(x, reserve_dims)
         samples = x2.shape[0]
         gate_params = params["gates"][gate_index]
+        if w > 1 and torch.is_grad_enabled():
+            gate_params = {k: net.allreduce_backward(v, self._world_group)
+                           if v.requires_grad else v
+                           for k, v in gate_params.items()}
 
-        alignment = self._alignment(megablocks_size)
+        alignment = self._alignment(deg, megablocks_size)
         noise = self._noise(gate_index, samples, training, key, x2.device)
         if capacity_override is not None:
             capacity = routing_ops.align_capacity(int(capacity_override),
                                                   alignment)
         elif cf > 0:
             capacity = self._static_capacity(samples, top_k, cf,
-                                             megablocks_size)
+                                             megablocks_size, deg)
         else:
             needed = int(self._count_needed(gate_params, x2, gate_index,
                                             top_k, noise))
@@ -248,36 +440,45 @@ class MOELayer:
         capacity = min(capacity, routing_ops.align_capacity(
             top_k * samples, alignment))
 
-        token_mask = None
-        if valid_tokens is not None:
-            vt = torch.as_tensor(valid_tokens).reshape(-1)
-            if vt.numel() != 1:
-                raise ValueError("valid_tokens must be a scalar on one "
-                                 f"device, got {vt.numel()} values")
-            token_mask = (torch.arange(samples, device=x2.device)
-                          < int(vt[0]))
+        if self.auto_parallel and adaptive_r is None \
+                and self.sharded_count > 1:
+            # (:546-558) model-parallel when replicating the dispatched
+            # activations r-fold costs less than regathering the weights
+            local_param_numel = sum(
+                v.numel() for v in params["experts"].values()
+                if isinstance(v, torch.Tensor))
+            y_numel = self.num_global_experts * capacity * x2.shape[1]
+            use_mp = y_numel * (self.sharded_count - 1) * 2 \
+                < local_param_numel
+            self.adaptive_degree = self.sharded_count if use_mp else 1
 
+        token_mask, n_valid = self._token_mask(valid_tokens, samples,
+                                               x2.device)
         crit, l_aux = self._routing(gate_params, x2, gate_index, top_k,
                                     capacity, noise, token_mask)
-        # routed: the rows the experts get, known on the host (the fused
-        # kernels plan their grid from it; the counts lie on the device)
-        routed = top_k * (samples if valid_tokens is None
-                          else min(samples, int(vt[0])))
-        ctx = SimpleNamespace(megablocks_size=megablocks_size,
-                              dispatch_count=crit.dispatch_count,
-                              num_global_experts=self.num_global_experts,
-                              routed=routed, training=training)
-        # every token at every expert, nothing dropped: a broadcast and a
-        # weighted sum take the place of the slot gathers
-        dense = (top_k == self.num_global_experts and capacity >= samples
-                 and megablocks_size == 0)
-        encode, decode = ((dispatch_ops.dense_encode,
-                           dispatch_ops.dense_decode) if dense else
-                          (dispatch_ops.fast_encode,
-                           dispatch_ops.fast_decode))
-        y = encode(x2, crit, self.is_postscore)
-        y = self._apply_experts(params["experts"], y, ctx)
-        out = decode(y, crit, self.is_postscore)
+        # dispatch_count and routed (the rows the experts get, a host
+        # number the fused kernels plan from) describe this rank's own
+        # routing; after the exchange the experts hold every rank's rows
+        ctx = SimpleNamespace(
+            megablocks_size=megablocks_size,
+            dispatch_count=crit.dispatch_count if w == 1 else None,
+            num_global_experts=self.num_global_experts,
+            routed=top_k * n_valid if w == 1 else None, training=training,
+            adaptive_degree=max(self.adaptive_degree, 1),
+            sharded_count=self.sharded_count)
+        # one device, every token at every expert, nothing dropped: a
+        # broadcast and a weighted sum take the place of the slot gathers
+        if w == 1 and top_k == self.num_global_experts \
+                and capacity >= samples and megablocks_size == 0:
+            y = dispatch_ops.dense_encode(x2, crit, self.is_postscore)
+            y = self._apply_experts(params["experts"], y, ctx)
+            out = dispatch_ops.dense_decode(y, crit, self.is_postscore)
+        else:
+            y = dispatch_ops.fast_encode(x2, crit, self.is_postscore)
+            y = self._experts_body(params["experts"], y, ctx)
+            out = dispatch_ops.fast_decode(y, crit, self.is_postscore)
+        if w > 1:
+            l_aux = net.simple_all_reduce(l_aux, self._world_group) / w
         out = out.reshape(*original_shape[:-reserve_dims],
                           *reserve_shape[:-1], -1)
         return out, l_aux
@@ -290,18 +491,118 @@ class MOELayer:
                 use_reentrant=False)
         return self.experts.apply(expert_params, y, ctx)
 
+    def _experts_body(self, expert_params, y, ctx):
+        """The dispatched [E, C, M] buffer through the experts: here (one
+        rank), after gathering the weights (r == 0), or across the world's
+        exchange (:1126-1174)."""
+        w, r = self.world_size, self.adaptive_degree
+        if w == 1:
+            return self._apply_experts(expert_params, y, ctx)
+        if self.sharded_count > 1 and any(
+                isinstance(v, (QuantizedWeight, FusedFFNStream))
+                for v in expert_params.values()):
+            raise ValueError(QUANT_TP.format(self.sharded_count))
+        if r == 0:
+            return self._apply_experts(
+                self._gather_expert_params(expert_params, r), y, ctx)
+        e_global, m = self.num_global_experts, y.shape[-1]
+        if e_global < w:
+            if r > 1:
+                y = y.repeat(1, r, 1)
+            y = y.reshape(w, -1, m)
+        eff = expert_params
+        if self.sharded_count > 1:
+            eff = self._gather_expert_params(expert_params, r)
+        deg = self.a2a_ffn_overlap_degree
+        if deg > 1:
+            # the chunked a2a / FFN pipeline: each chunk's exchange can
+            # overlap another chunk's experts
+            y = torch.cat([self._a2a(self._apply_experts(
+                eff, self._a2a(c, 1, 0), ctx), 0, 1)
+                for c in torch.chunk(y, deg, dim=1)], dim=1)
+        else:
+            y = self._a2a(self._apply_experts(eff, self._a2a(y, 1, 0), ctx),
+                          0, 1)
+        if e_global < w:
+            y = y.reshape(e_global, r, -1, y.shape[-1])
+            y = y.sum(dim=1) if r > 1 else y.reshape(e_global, -1,
+                                                     y.shape[-1])
+        return y
+
+    def _a2a(self, t, in_dim, out_dim):
+        """The world's exchange of the expert buffer, in `a2a_dtype` if
+        set, flat or two-level."""
+        ct = t if self.a2a_dtype is None else t.to(self.a2a_dtype)
+        if self._flat_2dh():
+            ct = net.all_to_all_2dh(ct, in_dim, out_dim,
+                                    self._hmesh.group("dcn"),
+                                    self._hmesh.group("ici"))
+        else:
+            ct = net.all_to_all(ct, in_dim, out_dim, self._world_group)
+        return ct if self.a2a_dtype is None else ct.to(t.dtype)
+
+    def _gather_expert_params(self, expert_params, r):
+        """Regather this rank's expert shards for adaptive_r = r (:889-952):
+        r == 0 gathers the global weights on every rank; under expert
+        slicing r > 0 gathers the hidden shards over 'g' (to H/r a
+        replica), and fc2_b whole, scaled by 1/r so the r partial sums add
+        it once."""
+        mesh = self._meshes[max(r, 1)]
+
+        def gather(p, axes, dim):
+            if mesh.size(axes) == 1:
+                return p
+            group = mesh.group(axes)
+            if isinstance(p, FusedFFNStream):
+                return dataclasses.replace(
+                    p, wstream=net.simple_all_gather(p.wstream, group, dim),
+                    sb=net.simple_all_gather(p.sb, group, dim))
+            if isinstance(p, QuantizedWeight):
+                scales = p.scales if p.scales.shape[dim] == 1 else \
+                    net.simple_all_gather(p.scales, group, dim)
+                return dataclasses.replace(
+                    p, values=net.simple_all_gather(p.values, group, dim),
+                    scales=scales)
+            return net.simple_all_gather(p, group, dim)
+
+        out = {}
+        for name, p in expert_params.items():
+            e_dim, s_dim = SHARD_AXES.get(name, (0, None))
+            if r == 0:
+                if self.sharded_count > 1:
+                    if s_dim is not None:
+                        p = gather(gather(p, "g", s_dim), "r", s_dim)
+                    p = gather(p, "e", e_dim)
+                else:
+                    p = gather(p, mesh_lib.MoeMesh.EP_AXES, e_dim)
+            elif self.sharded_count > 1 and s_dim is not None:
+                if name == "fc2_b":
+                    p = gather(gather(p, "g", s_dim), "r", s_dim)
+                    if r > 1:
+                        p = p / r
+                elif r < self.sharded_count:
+                    p = gather(p, "g", s_dim)
+            out[name] = p
+        return out
+
     # -- dropless capacity ---------------------------------------------
 
     def _count_needed(self, gate_params, x2, gate_index, top_k, noise=None,
                       token_mask=None):
-        """Tensor scalar: the most tokens any expert receives."""
+        """Tensor scalar: the most tokens any expert receives from any rank
+        (the largest over the world: one all-reduce MAX)."""
         with torch.no_grad():
             crit, _ = self._routing(gate_params, x2, gate_index, top_k, 1,
                                     noise, token_mask, with_loss=False)
-        return routing_ops.required_capacity(crit.dispatch_count)
+            needed = routing_ops.required_capacity(crit.dispatch_count)
+            if self.world_size > 1:
+                needed = net.simple_all_reduce(
+                    needed.reshape(1), self._world_group, op="max")[0]
+        return needed
 
     def resolve_capacity(self, params, x, key=None, gate_index=0, top_k=None,
-                         training=False, reserve_dims=1, megablocks_size=0):
+                         training=False, reserve_dims=1,
+                         a2a_ffn_overlap_degree=None, megablocks_size=0):
         """Dropless capacity of this input, aligned; pass it back as
         `capacity_override`."""
         gate = self.gates[gate_index]
@@ -310,15 +611,16 @@ class MOELayer:
         needed = int(self._count_needed(
             params["gates"][gate_index], x2, gate_index, top_k,
             self._noise(gate_index, x2.shape[0], training, key, x2.device)))
-        return routing_ops.align_capacity(max(1, needed),
-                                          self._alignment(megablocks_size))
+        return routing_ops.align_capacity(max(1, needed), self._alignment(
+            a2a_ffn_overlap_degree or self.a2a_ffn_overlap_degree,
+            megablocks_size))
 
     def count_needed_traceable(self, gate_index=0, top_k=None,
                                training=False):
         """fn(params, x2, key=None, token_mask=None) -> tensor scalar: the
         capacity the routing of x2 needs, computed on the device with no
         host sync (the serving engine checks a speculated capacity with
-        it after the fact)."""
+        it after the fact); over a world, the largest over the ranks."""
         gate = self.gates[gate_index]
         tk = min(int(top_k or gate.top_k), self.num_global_experts)
 

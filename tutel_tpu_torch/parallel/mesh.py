@@ -1,0 +1,158 @@
+"""Meshes of ranks as sets of process groups
+(counterpart: tutel_tpu/parallel/mesh.py).
+
+The JAX package lays its devices out as a `jax.sharding.Mesh` with named
+axes and runs collectives over axis names. Here the same layouts are sets
+of `torch.distributed` process groups over the ranks of a world, laid out
+row-major in consecutive order:
+
+  * `MoeMesh`: axes ('e', 'r', 'g') for one MoE layer: e expert groups,
+    and (r, g) factoring the `sharded_count` ranks that slice one expert
+    (r replicas of the hidden weights, regathered over g);
+  * `HierarchicalMesh`: ('dcn', 'ici'), hosts by ranks of one host, for
+    the two-level all-to-all.
+
+`ProcessMesh.group(axes)` is the group of this rank's line along `axes`
+(one axis name, or a tuple of names in mesh order). Every rank creates
+every line's group, in the same order, when a mesh is built; groups are
+cached by their ranks and reused by every later mesh (a per-call
+`adaptive_r` switch creates none). A line holding every rank of the world
+uses the default group.
+"""
+
+import dataclasses
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch.distributed as dist
+
+# (default group, ranks of a line) -> process group
+_GROUPS = {}
+
+
+def default_ranks():
+    """The ranks of the initialized world, or (0,) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return tuple(range(dist.get_world_size()))
+    return (0,)
+
+
+def this_rank():
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def _line_group(ranks):
+    """The process group over `ranks` (sorted global ranks), made once."""
+    world = dist.group.WORLD
+    if len(ranks) == dist.get_world_size():
+        return world
+    key = (world, ranks)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(ranks))
+    return _GROUPS[key]
+
+
+class ProcessMesh:
+    """`ranks` laid out row-major as `shape`, one axis name a dimension."""
+
+    def __init__(self, ranks: Sequence[int], shape, names):
+        self.ranks = tuple(ranks)
+        self.shape = tuple(int(s) for s in shape)
+        self.names = tuple(names)
+        if int(np.prod(self.shape)) != len(self.ranks):
+            raise ValueError(f"mesh {dict(zip(self.names, self.shape))} "
+                             f"!= {len(self.ranks)} ranks")
+        grid = np.asarray(self.ranks).reshape(self.shape)
+        me = this_rank()
+        self._groups = {}
+        # every line of every axis and of the whole mesh, in one order on
+        # every rank
+        combos = [(n,) for n in self.names] + [self.names]
+        for axes in combos:
+            dims = [self.names.index(a) for a in axes]
+            rest = [d for d in range(len(self.shape)) if d not in dims]
+            lines = np.moveaxis(grid, dims + rest, list(range(len(
+                self.shape)))).reshape(int(np.prod([self.shape[d]
+                                                    for d in dims])), -1)
+            for col in range(lines.shape[1]):
+                line = tuple(sorted(int(r) for r in lines[:, col]))
+                group = _line_group(line)
+                if me in line:
+                    self._groups[axes] = group
+
+    def _axes(self, axes):
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def size(self, axes):
+        """Ranks along `axes`."""
+        return int(np.prod([self.shape[self.names.index(a)]
+                            for a in self._axes(axes)]))
+
+    def group(self, axes):
+        """The process group of this rank's line along `axes`."""
+        axes = self._axes(axes)
+        if len(axes) == len(self.names):
+            axes = self.names
+        return self._groups[axes]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeMesh:
+    """The expert-parallel mesh of one MoE world: ('e', 'r', 'g')."""
+    ranks: tuple                        # the world's ranks, canonical order
+    num_expert_groups: int              # e axis size
+    sharded_count: int                  # r*g ranks sharing one expert
+    adaptive_r: int = 1                 # r axis size (weights replicated r x)
+
+    def __post_init__(self):
+        w = len(self.ranks)
+        if self.num_expert_groups * self.sharded_count != w:
+            raise ValueError(f"mesh factoring {self.num_expert_groups}x"
+                             f"{self.sharded_count} != {w} ranks")
+        if self.adaptive_r and self.sharded_count % self.adaptive_r:
+            raise ValueError(f"adaptive_r={self.adaptive_r} does not divide "
+                             f"sharded_count={self.sharded_count}")
+
+    @property
+    def gather_group_size(self):
+        return self.sharded_count // max(self.adaptive_r, 1)
+
+    def build(self) -> ProcessMesh:
+        return ProcessMesh(self.ranks, (self.num_expert_groups,
+                                       max(self.adaptive_r, 1),
+                                       self.gather_group_size),
+                           self.EP_AXES)
+
+    # the flat token / EP axis: all three axes, e-major
+    EP_AXES = ("e", "r", "g")
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalMesh:
+    """('dcn', 'ici') factoring of the same ranks: hosts by the ranks of
+    one host, for the two-level all-to-all."""
+    ranks: tuple
+    num_hosts: int                      # dcn axis size
+
+    def build(self) -> ProcessMesh:
+        w = len(self.ranks)
+        if w % self.num_hosts:
+            raise ValueError(f"{self.num_hosts} hosts do not divide {w} "
+                             f"ranks")
+        return ProcessMesh(self.ranks, (self.num_hosts, w // self.num_hosts),
+                           ("dcn", "ici"))
+
+
+def infer_num_hosts(ranks: Sequence[int], num_hosts: Optional[int] = None):
+    """Hosts among `ranks`: `num_hosts` if given, else from the ranks a host
+    runs (LOCAL_WORLD_SIZE, as torchrun sets it), else 1."""
+    if num_hosts:
+        return int(num_hosts)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+    if local > 0:
+        return max(1, -(-len(ranks) // local))
+    return 1
+
+
