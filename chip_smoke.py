@@ -136,9 +136,33 @@ In order, it
      --a2a_ffn_overlap_degree 2, losses bitwise equal to step 10's
      group-less run, ms a step; one INT4 two-call expert-parallel layer
      forward at the decode shape under the group, K1 launched twice
-     (ep_train_world1); then it destroys the group;
- 12. prints one JSON line per check and phase, the {"kernels": [...]} line
-     (all ten kernels), and last {"ok": true, "device": {...}}.
+     (ep_train_world1);
+ 12. runs slice 5b under the same group: ops.ragged_ep.ragged_ep_forward
+     (the layer refuses ragged EP on one rank) with the decode layer's
+     INT4 experts, gate and routing (256 tokens), every token within 2e-2
+     of the layer's padded dropless forward (K1 two-call), launching K1
+     exactly twice, and K2 exactly once with a prepared fused stream, each
+     path's event and profiled device ms, and the ragged wrappers of K1
+     and K2 against their twins at that exchange's rows
+     (ragged_ep_world1); K1 at the decode shape on INT4 weights packed in
+     2 and 4 K-blocks against its twin, and a float32 INT4 layer packed
+     with sharded_count=2 on the card against the CPU within 1e-4
+     (quant_sliced); examples/helloworld_zero.py at its defaults on the
+     card against the CPU, losses within 1e-4, and its optimizer state's
+     shard shape (zero_world1); the launcher starting the helloworld
+     trainer at its default width for 5 steps with --checkpoint_path in a
+     process of its own: its printed losses equal the first 5 of step
+     10's group-less run, its file equals the same steps' file written
+     here bit for bit, two --eval resumes give equal losses, and
+     checkpoint.scatter to 2 files and checkpoint.gather back reproduce
+     every array bit for bit, with ms a step (launcher_checkpoint); the
+     small float32 LM of step 9 built with group= the world-1 group, whose
+     engine's greedy tokens equal the group-less LM's (lm_world1); then it
+     destroys the group;
+ 13. prints one JSON line per check and phase, the {"kernels": [...]} line
+     (all ten kernels; the launches of step 12's path runs added, not
+     those of its kernel checks), and last
+     {"ok": true, "device": {...}}.
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
@@ -1882,20 +1906,386 @@ def ep_train_world1(smi, env, plain_losses):
             "card": smi}
 
 
-def ep_phases(smi, plain_losses):
-    """Slice 5a's phases, in order, each printing its JSON line; the
-    process group is destroyed at the end, so the script can exit."""
+# ---------------------------------------------------------------------------
+# Slice 5b: ragged expert parallelism, quantized experts under slicing,
+# ZeRO, the launcher and checkpoints, the LM over a group
+# ---------------------------------------------------------------------------
+
+RAGGED_TOL = 2e-2          # ragged against padded, per token, bfloat16
+ZERO_TOL = 1e-4            # helloworld_zero card vs CPU losses, float32
+
+
+def busy_ms(fn, reps=REPS):
+    """Device busy ms a call over `reps` calls, from torch.profiler: for
+    calls whose kernel count varies from call to call (the ragged
+    exchange's NCCL and copy events), where device_ms cannot count whole
+    calls."""
+    return profiled(lambda: [fn() for _ in range(reps)])[
+        "device_busy_ms"] / reps
+
+
+def ragged_relayout(rows, gs, c_max):
+    """The dense [E, c_max, K] view of ragged rows, and its inverse."""
+    from tutel_tpu_torch.ops import ragged
+    gs, starts = ragged.ragged_starts(gs)
+    return (ragged.ragged_to_dense(rows, gs, starts, c_max),
+            lambda y: ragged.dense_to_ragged(y, gs, starts, c_max,
+                                             rows.shape[0]))
+
+
+def ragged_kernel_checks(params, rows, gs, bandwidth):
+    """grouped_gemm_quant_ragged (K1) and fused_ffn_quant_ragged (K2) at
+    the decode layer's ragged exchange (rows grouped by expert) against
+    their plain twins on the same inputs on the card, each twice (bitwise
+    equal), with event and profiled device ms beside the twin's."""
+    w1, w2 = params["fc1_w"], params["fc2_w"]
+    stream = params["fused_stream"]
+    n, c_max = rows.shape[0], rows.shape[0]
+    dense, back = ragged_relayout(rows, gs, c_max)
+    counts = gs.clamp(max=c_max)
+    live = int(gs.sum())
+    out = {}
+    for name, kernel, plain in (
+            ("grouped_gemm_quant_ragged",
+             lambda: gq.grouped_gemm_quant_ragged(rows, w1, gs, c_max),
+             lambda: back(gq.grouped_gemm_quant_reference(dense, w1,
+                                                          counts))),
+            ("fused_ffn_quant_ragged",
+             lambda: fused_ffn.fused_ffn_quant_ragged(
+                 rows, stream, gs, c_max, activation_fn=activations.relu),
+             lambda: back(fused_ffn.fused_ffn_quant_reference(
+                 dense, stream, counts, activations.relu)))):
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise RuntimeError(f"two {name} calls differ")
+        diff = float((got.float() - ref.float()).abs().max())
+        rel = diff / float(ref.float().abs().max())
+        if not rel <= BF16_TOL:
+            raise RuntimeError(f"{name} disagrees with its twin: {rel}")
+        out[name] = {"rows": n, "live_rows": live, "max_abs_err": diff,
+                     "max_rel_err": rel, "tol": BF16_TOL,
+                     "bitwise_repeat": True, "ms": median_ms(kernel),
+                     "device_ms": busy_ms(kernel),
+                     "plain_ms": median_ms(plain)}
+    return out
+
+
+def ragged_ep_world1(smi, bandwidth):
+    """ops.ragged_ep.ragged_ep_forward under the world-1 group (the layer
+    refuses ragged EP on one rank, as JAX's does) with the decode layer's
+    INT4 experts (128 x 2048 x 2048, top-2, dropless, 256 tokens, bf16),
+    its own gate and routing and `apply_grouped`: every token within
+    RAGGED_TOL of the layer's padded dropless forward (K1 two-call); the
+    ragged path launches K1 exactly twice, or K2 once with a prepared
+    fused stream; event and profiled device ms of each path; and the two
+    ragged wrappers against their twins at this exchange's rows."""
+    from tutel_tpu_torch.ops import ragged as ragged_ops, ragged_ep
+    layer = decode_layer(0)
+    params = decode_params(layer)
+    fused = {**params, "experts": fused_ffn.prepare_fused_ffn_params(
+        params["experts"])}
+    x = torch.randn(256, 2048, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 50), device="cuda").to(
+        torch.bfloat16)
+    cap = layer.resolve_capacity(params, x)
+    max_recv = layer.resolve_max_recv(params, x)
+    with torch.no_grad():
+        crit, _ = layer._routing(params["gates"][0], x, 0, 2, cap,
+                                 with_loss=False)
+
+        def padded():
+            return layer(params, x, capacity_override=cap)[0]
+
+        def ragged(p):
+            return lambda: ragged_ep.ragged_ep_forward(
+                x, crit, p["experts"], layer.experts.apply_grouped, None,
+                max_recv, is_postscore=layer.is_postscore)
+        ref = padded()
+        report = {"capacity": cap, "max_recv": max_recv}
+        counts = {}
+        for path, p, kernel, n in (("two_call", params, "grouped_gemm_quant",
+                                    2),
+                                   ("fused", fused, "fused_ffn_quant", 1)):
+            reset_launches()
+            out = ragged(p)()
+            torch.cuda.synchronize()
+            counts[path] = read_launches(f"ragged_ep_world1 {path}",
+                                         {kernel})
+            if counts[path][kernel] != n:
+                raise RuntimeError(f"ragged EP {path} launched "
+                                   f"{counts[path]}: expected {kernel} x {n}")
+            err = per_token_rel_err(out, ref)
+            if not (torch.isfinite(out.float()).all() and err <= RAGGED_TOL):
+                raise RuntimeError(f"ragged EP {path} against the padded "
+                                   f"path: per-token error {err}")
+            report[f"ragged_{path}"] = {
+                "per_token_rel_err": err, "launches": counts[path],
+                "ms": median_ms(ragged(p)),
+                "device_ms": busy_ms(ragged(p))}
+        report["padded"] = {"ms": median_ms(padded),
+                            "device_ms": busy_ms(padded)}
+        # at one rank the exchange hands the experts the routed rows as
+        # they are, grouped by expert
+        rows = ragged_ops.encode_ragged(x, ragged_ops.make_ragged(crit))
+        wrappers = ragged_kernel_checks(fused["experts"], rows,
+                                        crit.dispatch_count, bandwidth)
+    return {"phase": "ragged_ep_world1", "tol": RAGGED_TOL, **report,
+            "wrappers": wrappers, "card": smi}, {
+        k: counts["two_call"][k] + counts["fused"][k] for k in KERNELS}
+
+
+def quant_sliced(smi, bandwidth):
+    """K1 at the decode shape with INT4 weights packed in 2 and 4 K-blocks
+    (the layout the r == 0 regather of K-sliced INT4 weights gives)
+    against its twin, to K1's criterion (BF16_TOL, two calls bitwise
+    equal); then a world-1 float32 INT4 layer at a small width whose
+    weights were packed with sharded_count=2, on the card against the
+    CPU within SMALL_TOL. Returns the layer's launches only: the kernel
+    checks do not count as launches of a path."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    routed = np.random.default_rng(SEED).multinomial(512, [1 / 128] * 128)
+    counts = torch.tensor(np.minimum(routed, 32), dtype=torch.int32,
+                          device=dev)
+    x = torch.randn(128, 32, 2048, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(128, 2048, 2048, generator=g, device=dev) * 0.02
+    blocks = {}
+    for nb in (2, 4):
+        qw = quant.quantize(w, 4, shard_blocks=nb)
+
+        def k1(qw=qw):
+            return gq.grouped_gemm_quant(x, qw, counts, routed=512)
+        got, again = k1(), k1()
+        ref = gq.grouped_gemm_quant_reference(x, qw, counts)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, ref, counts)
+        if not torch.equal(got, again) or not rel_err <= BF16_TOL:
+            raise RuntimeError(f"K1 with {nb} INT4 blocks: error {rel_err}, "
+                               f"repeat equal {torch.equal(got, again)}")
+        blocks[nb] = {"max_abs_err": abs_err, "max_rel_err": rel_err,
+                      "tol": BF16_TOL, "bitwise_repeat": True,
+                      "ms": median_ms(k1),
+                      "device_ms": device_ms(k1, "gmm_quant_kernel")}
+    del w
+    outs = {}
+    for d in ("cpu", "cuda"):
+        lay = moe.moe_layer(
+            gate_type={"type": "top", "k": 2, "capacity_factor": 0.0},
+            model_dim=128, device=d,
+            experts={"type": "ffn", "num_experts_per_device": 8,
+                     "hidden_size_per_expert": 256})
+        if d == "cpu":
+            p = lay.init(torch.Generator().manual_seed(SEED + 52))
+            p["experts"] = quant.quantize_expert_params(p["experts"], 4,
+                                                        sharded_count=2)
+            xs = torch.randn(96, 128, generator=torch.Generator().manual_seed(
+                SEED + 53))
+        reset_launches()
+        with torch.no_grad():
+            outs[d] = lay(on(p, d), xs.to(d))[0].cpu()
+        if d == "cuda":
+            layer_launches = read_launches("quant_sliced layer",
+                                           {"grouped_gemm_quant"})
+    err = float((outs["cuda"] - outs["cpu"]).abs().max()
+                / outs["cpu"].abs().max())
+    if not err <= SMALL_TOL:
+        raise RuntimeError(f"the sharded_count=2 INT4 layer on the card "
+                           f"against the CPU: {err}")
+    return {"phase": "quant_sliced", "k1_blocks": blocks,
+            "fc2_blocks": p["experts"]["fc2_w"].blocks,
+            "layer_vs_cpu": err, "layer_tol": SMALL_TOL,
+            "layer_launches": layer_launches, "card": smi}, layer_launches
+
+
+def zero_run(device):
+    """helloworld_zero at its own defaults on `device`: (losses, the
+    [Check] line)."""
+    from tutel_tpu_torch.examples import helloworld_zero
+    lines = []
+    losses = helloworld_zero.run(helloworld_zero.build_args(
+        ["--device", device]), log=lines.append)
+    return losses, lines[-1]
+
+
+def zero_world1(smi, cpu_ref):
+    """helloworld_zero on the card under the world-1 group against its
+    CPU run (cpu_ref, made before the group), losses within ZERO_TOL."""
+    reset_launches()
+    losses, check = zero_run("cuda")
+    launches = read_launches("zero_world1", set())
+    err = max(abs(a - b) for a, b in zip(losses, cpu_ref[0]))
+    if not (err <= ZERO_TOL and check == cpu_ref[1]):
+        raise RuntimeError(f"helloworld_zero on the card {losses} against "
+                           f"the CPU {cpu_ref[0]}: {err}; {check}")
+    return {"phase": "zero_world1", "losses": losses,
+            "cpu_losses": cpu_ref[0], "max_abs_err": err, "tol": ZERO_TOL,
+            "state_leaf": check, "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32, "launches": launches,
+            "card": smi}
+
+
+def run_module(argv, timeout=300):
+    """`python -m argv...` from the checkout's root; its standard output.
+    Raises with its output when it fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m"] + argv, cwd=root,
+                          capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": root})
+    if proc.returncode:
+        raise RuntimeError(f"python -m {' '.join(argv)} failed "
+                           f"({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def launcher_checkpoint(smi, plain_losses):
+    """The launcher starts the helloworld trainer at its default width for
+    5 steps with --checkpoint_path in a process of its own (its own
+    world-1 NCCL group, --coordinator 127.0.0.1:<free port>): the losses
+    it prints equal the first 5 of helloworld_train's group-less run
+    printed alike (its log's %.5f), and its file equals, bit for bit, the
+    one the same 5 steps write in this process, whose float losses equal
+    the group-less run's bit for bit; two --eval resumes give equal losses;
+    and checkpoint.scatter to 2 files and checkpoint.gather back
+    reproduce every array bit for bit."""
+    import socket
+    import tempfile
+    from tutel_tpu_torch import checkpoint
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        path = os.path.join(tmp, "hw.npz")
+        out = run_module([
+            "tutel_tpu_torch.launcher.run", "--coordinator",
+            f"127.0.0.1:{port}", "--nnodes", "1", "--node_rank", "0", "-m",
+            "tutel_tpu_torch.examples.helloworld", "--num_steps", "5",
+            "--checkpoint_path", path])
+        printed = re.findall(r"STEP-\d+: loss = ([0-9.]+)", out)
+        step_s = [float(v) for v in re.findall(
+            r"STEP-\d+: .*step_time = ([0-9.]+) sec", out)]
+        want = ["%.5f" % v for v in plain_losses[:5]]
+        if printed != want or not os.path.exists(path):
+            raise RuntimeError(f"the launched helloworld printed {printed}, "
+                               f"expected {want}")
+        here = os.path.join(tmp, "here.npz")
+        reset_launches()
+        here_losses = helloworld.run(helloworld.build_args(
+            ["--num_steps", "5", "--checkpoint_path", here]),
+            log=lambda *_: None)[0]
+        launches = read_launches("launcher_checkpoint", set())
+        if list(here_losses) != list(plain_losses[:5]):
+            raise RuntimeError(f"5 steps with --checkpoint_path lost "
+                               f"{here_losses}, the group-less run "
+                               f"{plain_losses[:5]}")
+        flat = checkpoint.serial.flatten_state(checkpoint.load_state(path))
+        ref = checkpoint.serial.flatten_state(checkpoint.load_state(here))
+        unequal = sorted(k for k in ref if not np.array_equal(flat[k],
+                                                              ref[k]))
+        if sorted(flat) != sorted(ref) or unequal:
+            raise RuntimeError(f"the launched run's checkpoint differs in "
+                               f"{unequal}")
+        evals = [helloworld.run(helloworld.build_args(
+            ["--num_steps", "2", "--eval", "--checkpoint_path", path]),
+            log=lambda *_: None)[0] for _ in range(2)]
+        if evals[0] != evals[1]:
+            raise RuntimeError(f"two --eval resumes differ: {evals}")
+        parts = os.path.join(tmp, "parts", "{rank}-of-{size}.npz")
+        back = os.path.join(tmp, "back.npz")
+        run_module(["tutel_tpu_torch.checkpoint.scatter", "--input", path,
+                    "--output_size", "2", "--outputs", parts])
+        run_module(["tutel_tpu_torch.checkpoint.gather", "--inputs", parts,
+                    "--input_size", "2", "--output", back])
+        again = checkpoint.serial.flatten_state(checkpoint.load_state(back))
+        flat = checkpoint.serial.flatten_state(checkpoint.load_state(path))
+        if sorted(again) != sorted(flat) or any(
+                not np.array_equal(again[k], flat[k])
+                or again[k].dtype != flat[k].dtype for k in flat):
+            raise RuntimeError("scatter to 2 files and gather back changed "
+                               "the checkpoint")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "launcher_checkpoint", "losses": printed,
+            "equal_at_printed_precision": True,
+            "checkpoint_bitwise_equal": True,
+            "in_process_losses_bitwise_equal": True,
+            "eval_losses": evals[0], "round_trip_arrays": len(flat),
+            "step_ms": [t * 1e3 for t in step_s],
+            "median_step_ms_after_first": statistics.median(step_s[1:]) * 1e3,
+            "launches": launches, "card": smi}
+
+
+def lm_world1(smi, env):
+    """The small float32 LM of the LM engine check (INT4 experts, INT8
+    cache) built with group= the world-1 group: its engine's greedy
+    tokens equal the group-less model's engine's."""
+    cfg = TransformerMoEConfig(
+        vocab_size=97, max_len=256, model_dim=256, num_heads=2,
+        num_kv_heads=1, num_layers=2, ffn_hidden=512, moe_every=2,
+        num_local_experts=4, top_k=2, capacity_factor=0.0,
+        expert_hidden=512, kv_bits=8)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, 97, n).astype(np.int32)
+               for n in (5, 130, 77, 20, 9, 200)]
+    toks = {}
+    for label, group in (("group", env), ("group_less", None)):
+        model = TransformerMoE(cfg, group=group, device="cuda")
+        params = lm_params(model, torch.Generator(device="cuda").manual_seed(
+            SEED))
+        reset_launches()
+        eng = LmDecodeEngine(model, params, max_batch=4,
+                             speculative_capacity=2.0)
+        toks[label] = {k: v.tolist() for k, v in eng.run(
+            [LmRequest(uid=i, prompt=pr, max_new_tokens=10)
+             for i, pr in enumerate(prompts)], chunk=4).items()}
+        if label == "group":
+            launches = read_launches("lm_world1", {
+                "fused_ffn_quant", "decode_attn", "prefill_attn",
+                "kv_write"})
+    if toks["group"] != toks["group_less"]:
+        raise RuntimeError("the LM over the world-1 group generated other "
+                           "tokens than the group-less LM")
+    return {"phase": "lm_world1", "requests": len(prompts),
+            "greedy_tokens": "identical", "launches": launches,
+            "card": smi}, launches
+
+
+def slice5b_phases(smi, env, plain_losses, bandwidth, zero_cpu):
+    """Slice 5b's phases under the world-1 group, each printing its JSON
+    line; returns the kernels' launches in them."""
+    total = {k: 0 for k in KERNELS}
+    for phase in (lambda: ragged_ep_world1(smi, bandwidth),
+                  lambda: quant_sliced(smi, bandwidth),
+                  lambda: (zero_world1(smi, zero_cpu), None),
+                  lambda: (launcher_checkpoint(smi, plain_losses), None),
+                  lambda: lm_world1(smi, env)):
+        line, counts = phase()
+        print(json.dumps(line), flush=True)
+        for k, n in (counts or {}).items():
+            total[k] += n
+        torch.cuda.empty_cache()
+    return total
+
+
+def ep_phases(smi, plain_losses, bandwidth):
+    """Slice 5a's phases, then slice 5b's, in order, each printing its JSON
+    line; the process group is destroyed at the end, so the script can
+    exit. Returns the kernels' launches in slice 5b's phases."""
     print(json.dumps(megablocks_decode(smi)), flush=True)
     torch.cuda.empty_cache()
     cpu_ref = net_calls("cpu")
+    zero_cpu = zero_run("cpu")              # no process group on the CPU
     env = init_world1()
     try:
         print(json.dumps(net_nccl(cpu_ref, env)), flush=True)
         print(json.dumps(ep_train_world1(smi, env, plain_losses)),
               flush=True)
+        return slice5b_phases(smi, env, plain_losses, bandwidth, zero_cpu)
     finally:
         system.destroy()
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -2137,7 +2527,8 @@ def main():
     torch.cuda.empty_cache()
 
     plain_losses = training_phases(smi)
-    ep_phases(smi, plain_losses)
+    for k, n in ep_phases(smi, plain_losses, bandwidth).items():
+        launches[k] = launches.get(k, 0) + n
 
     sources = {
         "grouped_gemm_quant": ("tutel_tpu_torch/csrc/grouped_gemm_quant.cu",

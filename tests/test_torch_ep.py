@@ -220,12 +220,25 @@ def _rank_quant_tp_raises(spec, params):
 
 
 def test_quantized_weights_under_slicing_raise(pools):
-    from tutel_tpu_torch.ops import quant
+    """Quantized weights slice (tests/test_torch_quant_tp.py), but not an
+    INT4 matrix packed in one block along a sliced K, nor a fused
+    stream."""
+    from tutel_tpu_torch.ops import fused_ffn, quant
     spec = {"nle": -2}
     params = _port_layer({"nle": 1}).init(torch.Generator().manual_seed(0))
-    params["experts"] = quant.quantize_expert_params(params["experts"], 8)
-    msgs = pools(2).run(_rank_quant_tp_raises, spec, params)
-    assert all(m and "next slice" in m for m in msgs)
+    experts = params["experts"]
+    for qe, what in (
+            (quant.quantize_expert_params(experts, 4), "shard_blocks=1"),
+            (fused_ffn.prepare_fused_ffn_params(
+                quant.quantize_expert_params(experts, 8), bw=H),
+             "fused weight streams")):
+        msgs = pools(2).run(_rank_quant_tp_raises, spec,
+                            {**params, "experts": qe})
+        assert all(m and what in m for m in msgs), msgs
+    msgs = pools(2).run(_rank_quant_tp_raises, spec, {
+        **params, "experts": quant.quantize_expert_params(
+            experts, 4, sharded_count=2)})
+    assert msgs == [None, None]
 
 
 # -- gradients ----------------------------------------------------------------

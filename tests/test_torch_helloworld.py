@@ -89,11 +89,12 @@ def test_eval_runs_the_forward_only():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num_devices", "2"], ["--checkpoint_path", "ck.npz"],
+    ["--num_devices", "2"], ["--num_devices", "3"],
     ["--use_scan"]])
 def test_flags_of_later_slices_raise(flag):
-    """--num_devices must equal the world size (one rank here); checkpoint
-    files belong to the next slice; --use_scan is a JAX compile strategy."""
+    """--num_devices must equal the world size (one rank here); --use_scan
+    is a JAX compile strategy. (--checkpoint_path runs since slice 5b:
+    tests/test_torch_checkpoint.py.)"""
     args = helloworld.build_args(BASE + flag)
     with pytest.raises(ValueError, match=flag[0]):
         helloworld.run(args, log=lambda *_: None)

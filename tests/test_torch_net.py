@@ -5,7 +5,9 @@ devices, on the same numpy inputs: the dim convention of all_to_all
 (every dim pair), the simple prims, the variable-length exchanges (even,
 uneven, with zeros) and all_gather_v, the two-level exchanges against
 JAX's, the expert permutes, the ZeRO helpers, and the gradients of the
-all-to-all, zero_gather and the all-reduce pair against jax.grad; and the
+all-to-all, zero_gather and the all-reduce pair against jax.grad; the
+reference facade's spatial_split, all_gather, reduce_scatter and
+create_standalone_group; and the
 session (`system.init_data_model_parallel`, its meshes) with the
 process groups of each mesh axis against the device lines of the JAX
 mesh of the same layout, and the system helpers.
@@ -144,6 +146,55 @@ def test_simple_prims(pools, w):
             tol = 1e-6 if name in ("sum", "rs", "fwd") else 0
             np.testing.assert_allclose(got[r][name], want[r], rtol=tol,
                                        atol=tol, err_msg=name)
+
+
+def _rank_facade(blocks):
+    x = _mine(blocks)
+    me, w = dist.get_rank(), dist.get_world_size()
+    # every rank makes every group, in one order
+    singles = [net.create_standalone_group([r]) for r in range(w)]
+    world = net.create_standalone_group()
+    pair = net.create_standalone_group([0, w - 1])
+    mine = singles[me]
+    return {"spatial": net.spatial_split(x, dim=1).numpy(),
+            "ag": net.all_gather(x, dim=1).numpy(),
+            "rs": net.reduce_scatter(x, dim=1).numpy(),
+            "single_size": net.get_world_size(mine),
+            "single_sum": net.simple_all_reduce(x, mine).numpy(),
+            "world_sum": net.simple_all_reduce(x, world).numpy(),
+            "pair": (dist.get_process_group_ranks(pair)
+                     if me in (0, w - 1) else None)}
+
+
+def test_facade_names(pools):
+    """spatial_split, the differentiable aliases all_gather and
+    reduce_scatter, and create_standalone_group (a group over the ranks
+    given; JAX's is a mesh over the devices given) at W = 2."""
+    jax, jnp, _, _, jnet = _jax()
+    w = 2
+    blocks = np.random.default_rng(9).standard_normal(
+        (w, 8, 4)).astype(np.float32)
+    got = pools(w).run(_rank_facade, blocks)
+
+    def body(xs):
+        x = xs[0]
+        return tuple(v[None] for v in (
+            jnet.spatial_split(x, "x", dim=1), jnet.all_gather(x, "x", dim=1),
+            jnet.reduce_scatter(x, "x", dim=1),
+            jnet.simple_all_reduce(x, "x")))
+    ref = _shard_map(body, w, 1, 4, blocks)
+    for r in range(w):
+        np.testing.assert_array_equal(got[r]["spatial"], ref[0][r])
+        np.testing.assert_array_equal(got[r]["ag"], ref[1][r])
+        np.testing.assert_allclose(got[r]["rs"], ref[2][r], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got[r]["world_sum"], ref[3][r],
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got[r]["single_sum"], blocks[r])
+        assert got[r]["single_size"] == jnet.create_standalone_group(
+            jax.devices()[r:r + 1]).size == 1
+        assert got[r]["pair"] == [0, w - 1]
+    assert jnet.create_standalone_group(jax.devices()[:w]).size == w
 
 
 # -- variable-length exchanges ------------------------------------------------

@@ -141,9 +141,13 @@ def test_llama_ffn_float_matches_jax(dtype):
         {k: tuple(v.shape) for k, v in jp.items()}
     assert 0.009 < float(torch.cat([v.flatten() for v in tp.values()]).std()) \
         < 0.011                                    # N(0, 0.01^2)
-    with pytest.raises(NotImplementedError, match="sharded_count"):
-        tllama.LlamaFFNNetwork(model_dim=64, hidden_size_per_expert=128,
-                               sharded_count=2)
+    # expert slicing: the global weights still (the layer slices them;
+    # tests/test_torch_quant_tp.py)
+    sliced = tllama.LlamaFFNNetwork(model_dim=64, hidden_size_per_expert=128,
+                                    num_experts_per_device=3, sharded_count=2)
+    assert {k: tuple(v.shape) for k, v in sliced.init(
+        torch.Generator().manual_seed(0), device="cpu").items()} == \
+        {k: tuple(v.shape) for k, v in jp.items()}
 
 
 @pytest.mark.parametrize("bits,fused", [(4, True), (4, False), (8, True)])

@@ -25,22 +25,28 @@ the environment describes (`system.init_data_model_parallel`);
 the parameters (`MOELayer.shard_params`) and its rows of the global batch
 (batch_size / W of them), and its loss is its share of the global loss
 (the mean over the global token axis): the ranks' losses sum to JAX's, and
-the logged loss is that sum. Flags of later slices raise (`UNSUPPORTED`).
+the logged loss is that sum, which every rank prints.
+
+`--checkpoint_path` (a {rank}/{size} pattern or a file) reads and writes
+the JAX example's one global file (rank 0 of size 1): a run loads it when
+it exists (every rank reads the whole state, then takes its shard), and
+at its end the ranks' `state_dict`s are gathered into the global state
+(`checkpoint.reshard.gather_states`), which rank 0 writes. `--use_scan`
+raises (`UNSUPPORTED`).
 """
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
-from tutel_tpu_torch import moe, net, system
+from tutel_tpu_torch import checkpoint, moe, net, system
 from tutel_tpu_torch.utils import resolve_device, sgd_step
 
-# flag -> why it raises here (the slice of the port that brings it)
+# flag -> why it raises here
 UNSUPPORTED = {
-    "checkpoint_path": "checkpoint files come with the launcher and "
-                       "checkpoint tools (the next slice of expert "
-                       "parallelism)",
     "use_scan": "one jit over all steps is a JAX compile strategy; this "
                 "loop already times synchronized steps",
 }
@@ -73,11 +79,36 @@ def build_args(argv=None):
 
 
 def _refuse_unsupported(args):
-    given = {"checkpoint_path": bool(args.checkpoint_path),
-             "use_scan": args.use_scan}
-    for flag, on in given.items():
-        if on:
-            raise ValueError(f"--{flag}: {UNSUPPORTED[flag]}")
+    if args.use_scan:
+        raise ValueError(f"--use_scan: {UNSUPPORTED['use_scan']}")
+
+
+def load_checkpoint(layer, params, pattern, log=print):
+    """The global params with the checkpoint's state loaded, when the
+    file exists (the JAX example's rank 0 of size 1)."""
+    path = system.apply_rank_size_from_pattern(pattern, rank=0, size=1)
+    if not os.path.exists(path):
+        return params
+    params = layer.load_state_dict(params, checkpoint.serial.flatten_state(
+        checkpoint.load_state(path)))
+    log(f"Checkpoint loaded from {path}.")
+    return params
+
+
+def save_checkpoint(layer, params, pattern, log=print):
+    """Gather every rank's shard into the global state; rank 0 writes
+    it."""
+    states = [layer.state_dict(params)]
+    if layer.world_size > 1:
+        states = [None] * layer.world_size
+        dist.all_gather_object(states, layer.state_dict(params),
+                               group=layer.world_group)
+    if layer.rank_index:
+        return
+    path = system.apply_rank_size_from_pattern(pattern, rank=0, size=1)
+    checkpoint.save_state(path, checkpoint.serial.unflatten_state(
+        checkpoint.gather_states(states)))
+    log(f"Checkpoint saved to {path}.")
 
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -131,6 +162,8 @@ def run(args, log=print, params=None, x=None):
         seeded = start(args, device, layer)
         params = seeded[0] if params is None else params
         x = seeded[1] if x is None else x
+    if args.checkpoint_path:
+        params = load_checkpoint(layer, params, args.checkpoint_path, log)
     params = layer.shard_params(params)
     b = args.batch_size // world
     x = x[env.global_rank * b:(env.global_rank + 1) * b]
@@ -194,14 +227,15 @@ def run(args, log=print, params=None, x=None):
 
     average_time /= min(10, args.num_steps)
     log("\n[Summary] Average synchronized step_time = %s sec." % average_time)
+    if args.checkpoint_path:
+        save_checkpoint(layer, params, args.checkpoint_path, log)
     return losses, average_time
 
 
 def main():
     args = build_args()
     try:
-        env = system.init_data_model_parallel(device=args.device)
-        run(args, log=env.dist_print)          # rank 0 prints
+        run(args)
     finally:
         system.destroy()
 

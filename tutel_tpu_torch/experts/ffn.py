@@ -10,6 +10,17 @@ or K5. Float weights ignore `activation_bits`, as in the JAX package;
 with `ctx.megablocks_size > 0` they take the dropless grouped-GEMM branch
 (`ops.grouped_gemm.megablocks_ffn`). The default activation is relu.
 
+`apply_grouped` is the flavour the ragged expert-parallel path calls
+(`ops.ragged_ep`; counterpart: tutel_tpu/experts/ffn.py:131-191): rows
+[N, M] grouped contiguously by local expert. Float weights run
+`ops.grouped_gemm` per layer; quantized weights gather the rows once into
+the dense [E, c_max, M] view (`ops.ragged`), run `quantized_ffn` over it
+(K2 when the params carry a fused stream that covers the output width,
+else K1 twice, each narrowed to the groups' rows) and gather back once:
+the numbers of JAX's `grouped_gemm_quant_ragged` /
+`fused_ffn_quant_ragged` per layer. A group keeps at most
+`ctx.ragged_c_max` rows (default: all N, JAX's rule).
+
 `sharded_count` is the number of ranks that slice one expert's hidden
 dim (expert-slicing tensor parallelism); it must divide the hidden size.
 `init` always makes the global parameters; `apply` follows the shapes it
@@ -21,14 +32,17 @@ Pallas calls have no gradient either).
 """
 
 import dataclasses
+import types
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..ops.activations import relu
-from ..ops.grouped_gemm import megablocks_ffn
+from ..ops.grouped_gemm import (grouped_bias_add, grouped_gemm,
+                                megablocks_ffn)
 from ..ops.grouped_gemm_quant import quantized_ffn
 from ..ops.quant import QuantizedWeight
+from ..ops.ragged import dense_to_ragged, ragged_starts, ragged_to_dense
 from ..ops.w8a8 import w8a8_ffn
 from ..utils import initializers, resolve_device
 
@@ -97,6 +111,37 @@ class FusedExpertsNetwork:
                 bias = torch.nn.functional.pad(
                     bias, (0, self.output_dim - bias.shape[-1]))
             y = y + bias
+        return y
+
+    def apply_grouped(self, params, rows, group_sizes, ctx=None):
+        """rows [N, M] grouped by local expert (group_sizes [E]) ->
+        [N, output_dim]; rows past sum(group_sizes) take no expert."""
+        fc1_w, fc2_w = params["fc1_w"], params["fc2_w"]
+        if isinstance(fc1_w, QuantizedWeight):
+            refuse_training(ctx)
+            # one dense [E, c_max, M] view for both layers: quantized_ffn
+            # runs K2 over a fused stream, else K1 twice, on each group's
+            # rows; the quantized ragged path ignores activation_bits, as
+            # in JAX
+            n = rows.shape[0]
+            c_max = int(getattr(ctx, "ragged_c_max", 0) or n)
+            gs, starts = ragged_starts(group_sizes)
+            view = types.SimpleNamespace(
+                dispatch_count=torch.clamp(gs, max=c_max), routed=n)
+            y = quantized_ffn(ragged_to_dense(rows, gs, starts, c_max),
+                              params, view, self.activation_fn,
+                              self.output_dim)
+            return dense_to_ragged(y, gs, starts, c_max, n)
+        y = grouped_gemm(rows, fc1_w, group_sizes)
+        if params.get("fc1_b") is not None:
+            y = grouped_bias_add(y, params["fc1_b"], group_sizes)
+        y = grouped_gemm(self.activation_fn(y), fc2_w, group_sizes)
+        if params.get("fc2_b") is not None:
+            bias = params["fc2_b"]
+            if bias.shape[-1] != self.output_dim:
+                bias = torch.nn.functional.pad(
+                    bias, (0, self.output_dim - bias.shape[-1]))
+            y = grouped_bias_add(y, bias, group_sizes)
         return y
 
 

@@ -11,8 +11,11 @@ otherwise, narrowed to ctx.dispatch_count rows per expert.
 
 The JAX expert's `TUTEL_TPU_GMM_BN` knob and its VMEM gate in front of
 the fused kernel were TPU devices and are not ported: K4 runs at every
-capacity whose row tile fits the card's shared memory. Expert slicing
-(`sharded_count` > 1) belongs to the multi-device slice and raises here.
+capacity whose row tile fits the card's shared memory. Under expert
+slicing (`sharded_count` > 1) the MoE layer slices w1 and w2 on their
+hidden dim (2) and w3 on its contraction dim (1) and regathers them for
+its adaptive r (`impls.moe_layer.SHARD_AXES`); `init` makes the global
+weights and `apply` follows the shapes it is given.
 """
 
 import dataclasses
@@ -39,10 +42,6 @@ class LlamaFFNNetwork:
     has_fc2_bias: bool = False
 
     def __post_init__(self):
-        if self.sharded_count != 1:
-            raise NotImplementedError(
-                "llama_ffn with sharded_count > 1 (expert slicing) is not "
-                "ported yet")
         self.hidden_size = self.hidden_size_per_expert
         self.output_dim = self.model_dim
 

@@ -25,8 +25,17 @@ expert parallelism with the tile and reshape for E < W; the chunked
 a2a/FFN overlap; the `a2a_dtype` cast around the exchange; the two-level
 exchange (`use_2dh`); `l_aux` averaged over the world. The dropless
 capacity is the largest over the world (one all-reduce MAX after the
-local probe). Quantized expert weights run under pure expert
-parallelism (`sharded_count == 1`) only.
+local probe). Quantized expert weights run under pure expert parallelism
+and under expert slicing: a K-sliced INT4 matrix must have been packed per
+shard block (`quantize_expert_params(..., sharded_count=)`), each rank
+reads its slice as a one-block packing (`_local_quant_view`), and a
+regather over n K-slices gives an n-block packing (K1 reads `blocks`).
+A fused weight stream does not slice and raises.
+
+Ragged expert parallelism (`use_ragged_ep=True`, :560-592): the dropless
+pure-EP exchange of the routed rows only (`ops.ragged_ep`), its receive
+buffer `max_recv` rows, probed (`resolve_max_recv`: the most rows any rank
+receives, one all-reduce and one host sync) unless given.
 
 Gradients. The collectives are `net`'s autograd Functions, so
 `loss.backward()` on every rank, with `loss` this rank's share of the
@@ -77,11 +86,6 @@ from ..utils import resolve_device
 # param name -> (expert dim, shard dim) of the expert parameters
 SHARD_AXES = {"fc1_w": (0, 2), "fc1_b": (0, 1), "fc2_w": (0, 1),
               "fc2_b": (0, 1), "w1": (0, 2), "w2": (0, 2), "w3": (0, 1)}
-
-QUANT_TP = ("quantized expert weights under expert-slicing tensor "
-            "parallelism (sharded_count={}) belong to the next slice of the "
-            "port (K-sliced INT4 blocks); use pure expert parallelism")
-
 
 def _lcm(a, b):
     return a * b // math.gcd(a, b)
@@ -219,14 +223,16 @@ class MOELayer:
                 num_global_experts=self.num_global_experts, **single))
 
         # every mesh this layer can use, built now on every rank in one
-        # order, so a per-call adaptive_r switch creates no group
-        self._meshes, self._world_group = {}, None
+        # order, so a per-call adaptive_r switch creates no group;
+        # world_group: the process group over the layer's ranks (None at
+        # one rank)
+        self._meshes, self.world_group = {}, None
         if self.world_size > 1:
             for r in sorted({max(r, 1) for r in self.valid_rs}):
                 self._meshes[r] = mesh_lib.MoeMesh(
                     self.ranks, self.world_size // self.sharded_count,
                     self.sharded_count, r).build()
-            self._world_group = self._meshes[1].group(
+            self.world_group = self._meshes[1].group(
                 mesh_lib.MoeMesh.EP_AXES)
             if self._flat_2dh():
                 self._hmesh = mesh_lib.HierarchicalMesh(
@@ -268,13 +274,51 @@ class MOELayer:
             if sc == 1:
                 out[name] = take_shard(v, e_dim, w, pos)
                 continue
-            if isinstance(v, (QuantizedWeight, FusedFFNStream)):
-                raise ValueError(QUANT_TP.format(sc))
+            if isinstance(v, FusedFFNStream):
+                raise ValueError(
+                    "fused weight streams don't support expert-slicing TP "
+                    f"(sharded_count={sc}); drop the 'fused_stream' entry "
+                    "for TP layouts")
+            self._check_quant_sliceable(name, v, s_dim)
+            # a QuantizedWeight slices its values on both dims and keeps
+            # its [E, 1, N] scales whole on the size-1 dim
             v = take_shard(v, e_dim, w // sc, pos // sc)
             if s_dim is not None:
                 v = take_shard(v, s_dim, sc, pos % sc)
             out[name] = v
         return {**params, "experts": out}
+
+    def _check_quant_sliceable(self, name, v, s_dim):
+        """Slicing an INT4 weight's packed contraction dim (dim 1 of
+        [E, K/2, N] values) commutes with the nibble unpacking only when
+        the packing was done per shard block (:848-866)."""
+        if not isinstance(v, QuantizedWeight) or v.bits != 4 \
+                or self.sharded_count <= 1:
+            return
+        if s_dim == 1 and v.blocks != self.sharded_count:
+            raise ValueError(
+                f"INT4 expert weight {name!r} is K-sliced over "
+                f"sharded_count={self.sharded_count} but was packed "
+                f"with shard_blocks={v.blocks}; slicing would "
+                f"interleave nibble-packing halves. Quantize with "
+                f"quantize_expert_params(..., sharded_count="
+                f"{self.sharded_count}).")
+
+    def _local_quant_view(self, expert_params):
+        """A rank's K-slice of an INT4 weight packed per shard block is a
+        one-block packing of its own K range: its `blocks` becomes 1, so
+        the kernel, dequantize and the regather see the slice's true
+        packing (:868-887)."""
+        if self.sharded_count <= 1:
+            return expert_params
+        out = {}
+        for name, p in expert_params.items():
+            if isinstance(p, QuantizedWeight) and p.bits == 4 \
+                    and p.blocks > 1 \
+                    and SHARD_AXES.get(name, (0, None))[1] is not None:
+                p = dataclasses.replace(p, blocks=1)
+            out[name] = p
+        return out
 
     # -- capacity math -------------------------------------------------
 
@@ -373,7 +417,8 @@ class MOELayer:
                  a2a_ffn_overlap_degree=None, reserve_dims=1,
                  inequivalent_tokens=False, valid_tokens=None,
                  adaptive_r=None, megablocks_size=0, training=False,
-                 capacity_override=None):
+                 capacity_override=None, use_ragged_ep=False,
+                 max_recv=None):
         """Forward pass of this rank's rows. Returns (output, l_aux).
 
         key: a torch.Generator for the training gate noise (None = the
@@ -382,7 +427,10 @@ class MOELayer:
         (the form `inequivalent_tokens=True` needs); padding rows take no
         expert slot, add nothing to l_aux and come out as zeros.
         a2a_ffn_overlap_degree and adaptive_r stay set for later calls, as
-        in the JAX layer.
+        in the JAX layer. use_ragged_ep: exchange only the routed rows
+        (dropless pure expert parallelism over several ranks), into a
+        receive buffer of max_recv rows (None: probed; rows past an
+        explicit bound are dropped and come back as zeros).
         """
         if inequivalent_tokens and valid_tokens is None:
             raise ValueError(
@@ -417,7 +465,7 @@ class MOELayer:
         samples = x2.shape[0]
         gate_params = params["gates"][gate_index]
         if w > 1 and torch.is_grad_enabled():
-            gate_params = {k: net.allreduce_backward(v, self._world_group)
+            gate_params = {k: net.allreduce_backward(v, self.world_group)
                            if v.requires_grad else v
                            for k, v in gate_params.items()}
 
@@ -439,6 +487,22 @@ class MOELayer:
             capacity = routing_ops.align_capacity(capacity, alignment)
         capacity = min(capacity, routing_ops.align_capacity(
             top_k * samples, alignment))
+
+        ragged_max_recv = 0
+        if use_ragged_ep:
+            if not (w > 1 and self.sharded_count == 1):
+                raise ValueError("ragged EP needs a multi-device pure-EP "
+                                 "layout")
+            if not (cf == 0 and valid_tokens is None
+                    and megablocks_size == 0):
+                raise ValueError("ragged EP is the dropless path "
+                                 "(capacity_factor=0, no masking/megablocks)")
+            if max_recv:
+                ragged_max_recv = min(int(max_recv), routing_ops.
+                                      align_capacity(w * top_k * samples, 128))
+            else:
+                ragged_max_recv = self._ragged_bound(gate_params, x2,
+                                                     gate_index, top_k, noise)
 
         if self.auto_parallel and adaptive_r is None \
                 and self.sharded_count > 1:
@@ -466,9 +530,18 @@ class MOELayer:
             routed=top_k * n_valid if w == 1 else None, training=training,
             adaptive_degree=max(self.adaptive_degree, 1),
             sharded_count=self.sharded_count)
+        if ragged_max_recv:
+            from ..ops import ragged_ep
+            hier = None
+            if self._flat_2dh():
+                hier = (self._hmesh.group("dcn"), self._hmesh.group("ici"))
+            out = ragged_ep.ragged_ep_forward(
+                x2, crit, params["experts"], self.experts.apply_grouped,
+                self.world_group, ragged_max_recv,
+                is_postscore=self.is_postscore, ctx=ctx, hier=hier)
         # one device, every token at every expert, nothing dropped: a
         # broadcast and a weighted sum take the place of the slot gathers
-        if w == 1 and top_k == self.num_global_experts \
+        elif w == 1 and top_k == self.num_global_experts \
                 and capacity >= samples and megablocks_size == 0:
             y = dispatch_ops.dense_encode(x2, crit, self.is_postscore)
             y = self._apply_experts(params["experts"], y, ctx)
@@ -478,7 +551,7 @@ class MOELayer:
             y = self._experts_body(params["experts"], y, ctx)
             out = dispatch_ops.fast_decode(y, crit, self.is_postscore)
         if w > 1:
-            l_aux = net.simple_all_reduce(l_aux, self._world_group) / w
+            l_aux = net.simple_all_reduce(l_aux, self.world_group) / w
         out = out.reshape(*original_shape[:-reserve_dims],
                           *reserve_shape[:-1], -1)
         return out, l_aux
@@ -498,10 +571,7 @@ class MOELayer:
         w, r = self.world_size, self.adaptive_degree
         if w == 1:
             return self._apply_experts(expert_params, y, ctx)
-        if self.sharded_count > 1 and any(
-                isinstance(v, (QuantizedWeight, FusedFFNStream))
-                for v in expert_params.values()):
-            raise ValueError(QUANT_TP.format(self.sharded_count))
+        expert_params = self._local_quant_view(expert_params)
         if r == 0:
             return self._apply_experts(
                 self._gather_expert_params(expert_params, r), y, ctx)
@@ -538,7 +608,7 @@ class MOELayer:
                                     self._hmesh.group("dcn"),
                                     self._hmesh.group("ici"))
         else:
-            ct = net.all_to_all(ct, in_dim, out_dim, self._world_group)
+            ct = net.all_to_all(ct, in_dim, out_dim, self.world_group)
         return ct if self.a2a_dtype is None else ct.to(t.dtype)
 
     def _gather_expert_params(self, expert_params, r):
@@ -560,9 +630,12 @@ class MOELayer:
             if isinstance(p, QuantizedWeight):
                 scales = p.scales if p.scales.shape[dim] == 1 else \
                     net.simple_all_gather(p.scales, group, dim)
+                # n K-slices of an INT4 weight make an n-block packing
+                blocks = p.blocks * (mesh.size(axes) if p.bits == 4
+                                     and dim == 1 else 1)
                 return dataclasses.replace(
                     p, values=net.simple_all_gather(p.values, group, dim),
-                    scales=scales)
+                    scales=scales, blocks=blocks)
             return net.simple_all_gather(p, group, dim)
 
         out = {}
@@ -597,8 +670,44 @@ class MOELayer:
             needed = routing_ops.required_capacity(crit.dispatch_count)
             if self.world_size > 1:
                 needed = net.simple_all_reduce(
-                    needed.reshape(1), self._world_group, op="max")[0]
+                    needed.reshape(1), self.world_group, op="max")[0]
         return needed
+
+    def _ragged_bound(self, gate_params, x2, gate_index, top_k, noise=None,
+                      slack=1.0):
+        """The most rows any rank receives in the ragged exchange
+        (:1365-1410), times slack, aligned to 128 and capped at the
+        lossless worst case. One all-reduce sums the ranks' per-expert
+        counts (a rank receives its experts' totals), one host sync reads
+        the bound."""
+        with torch.no_grad():
+            crit, _ = self._routing(gate_params, x2, gate_index, top_k, 1,
+                                    noise, with_loss=False)
+            counts = crit.dispatch_count.to(torch.int64)
+            if self.world_size > 1:
+                counts = net.simple_all_reduce(counts, self.world_group)
+            needed = int(counts.reshape(self.world_size, -1).sum(1).max())
+        worst = routing_ops.align_capacity(
+            self.world_size * top_k * x2.shape[0], 128)
+        needed = int(max(needed, 1) * max(slack, 1.0))
+        return min(routing_ops.align_capacity(needed, 128), worst)
+
+    def resolve_max_recv(self, params, x, key=None, gate_index=0,
+                         top_k=None, training=False, reserve_dims=1,
+                         slack=1.0):
+        """The ragged receive bound of this routing, aligned to 128, for
+        `max_recv` (:1411-1438): x is this rank's rows; every rank calls
+        it. The bound is exact for this routing only; for reuse across
+        steps pass slack > 1 (the bound is multiplied, re-aligned and
+        capped at the lossless worst case) or probe again, since rows past
+        max_recv are dropped."""
+        gate = self.gates[gate_index]
+        top_k = min(int(top_k or gate.top_k), self.num_global_experts)
+        x2 = self._flat(x, reserve_dims)
+        return self._ragged_bound(
+            params["gates"][gate_index], x2, gate_index, top_k,
+            self._noise(gate_index, x2.shape[0], training, key, x2.device),
+            slack)
 
     def resolve_capacity(self, params, x, key=None, gate_index=0, top_k=None,
                          training=False, reserve_dims=1,

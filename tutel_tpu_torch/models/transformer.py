@@ -9,7 +9,7 @@ dict per block with flat slabs "k"/"v" [B, max_len, KVH * HD] (int8, or
 INT4 split-half packed bytes [B, max_len, KVH * HD / 2], with f32 scales
 "k_s"/"v_s" [B, KVH, max_len] when kv_bits is 8 or 4). Pre-LN blocks;
 every `moe_every`-th block's FFN is an MoE layer
-(`impls.moe_layer.MOELayer`, one device).
+(`impls.moe_layer.MOELayer`).
 
 The decode step has one structure on every device: each block's attention
 runs kernel K6 (`ops.decode_attn.decode_attn`) with the token's fresh K/V
@@ -20,9 +20,17 @@ runs kernel K7 (`ops.decode_attn.prefill_attn`) per block and prompt
 chunk. On CPU tensors those functions run their plain twins; on CUDA
 tensors they launch the kernels or raise. The cache is updated in place.
 
-Not ported (later slices): the sequence-parallel forward (`apply_seqpar`,
-`_attn_seqpar`, `_attn_ringpar`, `seqpar_specs`) and multi-device
-expert-parallel padding. The JAX model's kernel-mode switches and XLA
+Over a process group (`group=`, `parallel_type=`, passed to every MoE
+layer; :62-80) every rank runs the whole model on the whole batch, and
+each MoE block runs expert parallelism: `_moe_call` pads the flattened
+tokens to a multiple of the world size W (the padding masked by a scalar
+`valid_tokens`, :190-212), hands the layer this rank's rows and
+all-gathers its output. The gather's backward takes this rank's rows and
+the row split's backward all-gathers, since every rank holds the same
+loss; the l_aux gradient is counted once over the ranks.
+
+Not ported (a later slice): the sequence-parallel forward (`apply_seqpar`,
+`_attn_seqpar`, `_attn_ringpar`, `seqpar_specs`). The JAX model's kernel-mode switches and XLA
 fallback paths (`_attn_kernel_mode`, `_prefill_kernel_mode`,
 TUTEL_TPU_DECODE_ATTN, TUTEL_TPU_PREFILL_ATTN, TUTEL_TPU_SKIP_KV_WRITE,
 the VMEM budget of the batched write) were devices of the TPU compiler and
@@ -34,6 +42,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import net
 from ..impls.moe_layer import MOELayer
 from ..ops.activations import gelu
 from ..ops.decode_attn import decode_attn, prefill_attn, unpack_int4
@@ -65,13 +74,47 @@ class TransformerMoEConfig:
                                        # reads KV group h % num_kv_heads
 
 
+class _TakeRows(torch.autograd.Function):
+    """This rank's rows of a tensor every rank holds alike; the backward
+    all-gathers the ranks' row gradients (each rank's rows reach the loss
+    through that rank only)."""
+
+    @staticmethod
+    def forward(ctx, x, group, start, count):
+        ctx.group = group
+        return x[start:start + count]
+
+    @staticmethod
+    def backward(ctx, g):
+        return net.simple_all_gather(g, ctx.group), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows, in rank order; the backward keeps this rank's
+    rows of the gradient (every rank computes the same loss from the
+    gathered rows, so its gradient is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        return net.simple_all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = net.get_world_rank(ctx.group)
+        return g[me * ctx.rows:(me + 1) * ctx.rows], None
+
+
 class TransformerMoE:
     """Functional model: `init(generator) -> params`, `apply(params,
     tokens)`, and the serving path `init_cache` / `prefill` /
     `apply_decode`. Runs on `device` (default "cuda", which raises
-    without a GPU)."""
+    without a GPU); its MoE layers run over `group` (a process group, a
+    `system.ParallelEnv` or a list of ranks; None: the default group, or
+    one rank without one) under `parallel_type`."""
 
-    def __init__(self, config: TransformerMoEConfig, device="cuda"):
+    def __init__(self, config: TransformerMoEConfig, group=None,
+                 parallel_type="adaptive:1", device="cuda"):
         self.cfg = config
         self.device = resolve_device(device)
         if config.kv_bits not in (0, 8, 4):
@@ -88,6 +131,7 @@ class TransformerMoE:
                              "hidden_size_per_expert": config.expert_hidden,
                              **(config.expert_kwargs or {})},
                     model_dim=config.model_dim, dtype=config.dtype,
+                    parallel_type=parallel_type, group=group,
                     device=self.device)
         self._kv_writer = None      # K8 prepared for the last cache written
 
@@ -156,6 +200,15 @@ class TransformerMoE:
             params["blocks"].append(block)
         return params
 
+    def shard_params(self, params):
+        """This rank's parameters: each MoE block's experts sharded by its
+        layer (`MOELayer.shard_params`), everything else whole. One rank:
+        the params as they are."""
+        blocks = [{**blk, "moe": self.moe_layers[i].shard_params(blk["moe"])}
+                  if i in self.moe_layers else blk
+                  for i, blk in enumerate(params["blocks"])]
+        return {**params, "blocks": blocks}
+
     # ------------------------------------------------------------------
 
     @staticmethod
@@ -176,10 +229,52 @@ class TransformerMoE:
         o = matmul_f32(hdn.to(self.cfg.dtype), f["w2"]) + f["b2"].float()
         return o.to(self.cfg.dtype)
 
+    @staticmethod
+    def _rank_rows(layer, h):
+        """(this rank's rows of h's flattened tokens padded to a multiple
+        of the world size, the token count n, the padded rows a rank)."""
+        w = layer.world_size
+        n = h.numel() // h.shape[-1]
+        flat = h.reshape(n, h.shape[-1])
+        pad = (-n) % w
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad, flat.shape[1]))])
+        rows = flat.shape[0] // w
+        return _TakeRows.apply(flat, layer.world_group,
+                               layer.rank_index * rows, rows), n, rows
+
     def _moe_call(self, i, moe_params, h, **overrides):
-        """MoE layer i on activations h [..., d] (one device, so no
-        expert-parallel padding)."""
-        return self.moe_layers[i](moe_params, h, **overrides)
+        """MoE layer i on activations h [..., d], which every rank holds
+        alike. Over W > 1 ranks the flattened tokens are padded to a
+        multiple of W (a scalar `valid_tokens` masks the padding), the
+        layer gets this rank's rows, and its output rows are all-gathered
+        and trimmed (:190-212)."""
+        layer = self.moe_layers[i]
+        w = layer.world_size
+        if w <= 1:
+            return layer(moe_params, h, **overrides)
+        local, n, rows = self._rank_rows(layer, h)
+        if rows * w != n and "valid_tokens" not in overrides:
+            overrides = {**overrides, "valid_tokens": n}
+        out, l_aux = layer(moe_params, local, **overrides)
+        out = _GatherRows.apply(out, layer.world_group)[:n].reshape(
+            *h.shape[:-1], out.shape[-1])
+        # every rank adds the same l_aux to the same loss: count its
+        # gradient once over the ranks (the layer's all-reduce sums it)
+        l_aux = l_aux.detach() + (l_aux - l_aux.detach()) / w
+        return out, l_aux
+
+    def _probe(self, i, moe_params, h, top_k):
+        """The dropless capacity layer i's routing of h needs (a device
+        scalar, the largest over the ranks)."""
+        layer = self.moe_layers[i]
+        probe = layer.count_needed_traceable(top_k=top_k)
+        if layer.world_size <= 1:
+            return probe(moe_params, h)
+        local, n, rows = self._rank_rows(layer, h)
+        first = layer.rank_index * rows
+        mask = torch.arange(first, first + rows, device=h.device) < n
+        return probe(moe_params, local, None, mask)
 
     def _logits(self, params, x):
         """Tied-embedding logits; float32 for float32 models, else the
@@ -416,10 +511,8 @@ class TransformerMoE:
             h = self._ln(block["ln2"], x)
             if i in self.moe_layers:
                 if capacity_probe:
-                    probe = self.moe_layers[i].count_needed_traceable(
-                        top_k=ov.get("top_k"))
-                    needed_max = torch.maximum(
-                        needed_max, probe(block["moe"], h).long())
+                    needed_max = torch.maximum(needed_max, self._probe(
+                        i, block["moe"], h, ov.get("top_k")).long())
                 out, l_aux = self._moe_call(i, block["moe"], h, **ov)
                 x = x + out
                 l_aux_sum = l_aux_sum + l_aux.float()

@@ -4,8 +4,9 @@ The JAX functions run inside `shard_map` over a mesh axis; these run in
 every rank of a `torch.distributed` group (`group=None`: the default
 group) with the same calling conventions: the dim-to-dim `all_to_all`,
 the two-level `all_to_all_2dh`, the variable-length exchanges with an
-`output_size`, and the ZeRO flatten-pad helpers. Without an initialized
-process group the world is one rank and each collective is the identity.
+`output_size`, the ZeRO flatten-pad helpers and `ZeroOptimizer`. Without
+an initialized process group the world is one rank and each collective is
+the identity.
 
 Where the JAX function has a gradient the port's is a
 `torch.autograd.Function` whose backward is the transposed collective:
@@ -17,6 +18,8 @@ Only collective names that torch 2.11 has are used: `all_to_all_single`,
 
 import torch
 import torch.distributed as dist
+
+from .utils import tree_leaves, tree_replace
 
 
 def _initialized():
@@ -165,6 +168,19 @@ def simple_split(x, group=None, dim=0):
     return x.narrow(dim, get_world_rank(group) * chunk, chunk)
 
 
+spatial_split = simple_split
+
+
+def create_standalone_group(ranks=None):
+    """A process group over `ranks` (None: every rank of the world). Every
+    rank of the world calls it, in one order, also the ranks outside it
+    (torch's `new_group` contract); without a process group it returns
+    None, the one-rank world."""
+    if not _initialized():
+        return None
+    return dist.new_group(sorted(ranks) if ranks is not None else None)
+
+
 def simple_reduce_scatter(x, group=None, dim=0):
     """Sum over ranks, each keeping its slice of dim."""
     y = _ReduceScatter.apply(x.movedim(dim, 0), group)
@@ -175,6 +191,11 @@ def simple_all_gather(x, group=None, dim=0):
     """Concatenate every rank's x along dim, in rank order."""
     y = _AllGather.apply(x.movedim(dim, 0), group)
     return y.movedim(0, dim)
+
+
+# the differentiable names of the reference's facade (net.py:530-531)
+all_gather = simple_all_gather
+reduce_scatter = simple_reduce_scatter
 
 
 def allreduce_forward(x, group=None):
@@ -303,6 +324,68 @@ def zero_scatter(x, group=None):
     return flat.reshape(size, -1)[get_world_rank(group)], numel
 
 
+class ZeroOptimizer:
+    """ZeRO stage 1 over a process group (counterpart: tutel_tpu/net.py
+    ZeroOptimizer :435-497).
+
+    Each parameter is flattened and padded to a multiple of the world size
+    W; this rank keeps the inner optimizer's state for its row of the
+    [W, numel / W] view only. A step reduce-scatters the gradients (their
+    SUM over the ranks, as JAX's psum_scatter: the data-parallel all-reduce
+    of each rank's own loss's gradient), runs the inner optimizer on this
+    rank's shard, and all-gathers the shards, trimmed and reshaped. At
+    W == 1 it is the inner optimizer over the flattened parameters.
+
+    inner: a `torch.optim.Optimizer` class, its keyword arguments after
+    the group. Every rank:
+
+        opt = net.ZeroOptimizer(torch.optim.Adam, group, lr=1e-3)
+        state = opt.init(params)        # the inner optimizer over shards
+        params, state = opt.step(params, grads, state)
+
+    params and grads are trees of tensors (`utils.tree_leaves` order);
+    the state is the inner optimizer, whose parameters are this rank's
+    flat shards.
+    """
+
+    def __init__(self, inner, group=None, **kwargs):
+        self.inner, self.group, self.kwargs = inner, group, kwargs
+
+    def _rows(self, p):
+        """p flattened and padded into [W, numel / W]."""
+        w = get_world_size(self.group)
+        flat = p.reshape(-1)
+        pad = (-flat.shape[0]) % w
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        return flat.reshape(w, -1)
+
+    def init(self, params):
+        """The inner optimizer over this rank's flat shard of each leaf."""
+        me = get_world_rank(self.group)
+        shards = [self._rows(p.detach())[me].clone().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        return self.inner(shards, **self.kwargs)
+
+    def step(self, params, grads, state):
+        """(new params, state) after one step on the summed gradients."""
+        w, me = get_world_size(self.group), get_world_rank(self.group)
+        leaves = tree_leaves(params)
+        grads = tree_leaves(grads)
+        shards = [p for g in state.param_groups for p in g["params"]]
+        with torch.no_grad():
+            for s, p, g in zip(shards, leaves, grads):
+                s.copy_(self._rows(p)[me])
+                rows = self._rows(g.to(p.dtype))
+                s.grad = rows[0].clone() if w == 1 else \
+                    _scatter_dim0(rows, self.group)[0]
+            state.step()
+            new = [_gather_dim0(s.detach()[None], self.group).reshape(-1)[
+                :p.numel()].reshape(p.shape).to(p.dtype)
+                for s, p in zip(shards, leaves)]
+        return tree_replace(params, new), state
+
+
 # ---------------------------------------------------------------------------
 # Variable-length collectives
 # ---------------------------------------------------------------------------
@@ -310,8 +393,15 @@ def zero_scatter(x, group=None):
 def _rows_exchange(t, send, recv, n_out, group):
     """Rows [0, sum(send)) of t, sent in blocks of `send` rows to the ranks
     in order, received in blocks of `recv` rows; placed in a zero
-    [n_out, ...] buffer (rows past n_out are dropped)."""
-    src = t[:sum(send)].contiguous()
+    [n_out, ...] buffer (rows past n_out are dropped). Rows past the end of
+    t are sent as zeros: the return leg of an exchange whose receive buffer
+    dropped rows, and the backward of such an exchange, send fewer rows
+    than their counts."""
+    src = t[:sum(send)]
+    if src.shape[0] < sum(send):
+        src = torch.cat([src, src.new_zeros(
+            (sum(send) - src.shape[0],) + tuple(t.shape[1:]))])
+    src = src.contiguous()
     buf = t.new_empty((sum(recv),) + tuple(t.shape[1:]))
     if _initialized():
         dist.all_to_all_single(buf, src, output_split_sizes=recv,

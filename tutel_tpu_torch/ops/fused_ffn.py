@@ -26,7 +26,9 @@ K2 and K4 split each expert's hidden over S blocks (`split_plan`): a
 block computes its slice of the hidden and that slice's partial of the
 down projection, and with S > 1 a second kernel sums the S partials in
 slice order. `split_slices` is the slice plan the kernels share
-(`ffn_common.cuh` `split_rows`).
+(`ffn_common.cuh` `split_rows`). `fused_ffn_quant_ragged` runs K2 over
+rows grouped contiguously by expert (expert parallelism's ragged layout)
+through the dense view of `ops.ragged`.
 
 Rows at or past counts[e] are zeros; the JAX kernels leave bias-only
 values there, which no caller reads. The JAX package's VMEM gates and
@@ -44,6 +46,7 @@ import torch
 from ..csrc import build
 from .activations import gelu, kernel_code, silu
 from .quant import QuantizedWeight, int_bmm, quantize_activations, unpack_int4
+from .ragged import dense_to_ragged, ragged_starts, ragged_to_dense
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # shared memory one block of the fused kernels may use on Hopper (227 KB)
@@ -532,6 +535,21 @@ def fused_ffn_quant(x, stream: FusedFFNStream, counts=None,
 
 
 fused_ffn_quant.launches = 0
+
+
+def fused_ffn_quant_ragged(rows, stream: FusedFFNStream, group_sizes, c_max,
+                           activation_fn=gelu):
+    """K2 over a ragged row layout (counterpart: tutel_tpu/ops/
+    grouped_gemm_pallas.py:286): one gather into the dense [E, c_max, K]
+    view, one K2 call, one gather back; rows past c_max of a group, and
+    past sum(group_sizes), are zeros. The kernel plans from N routed
+    rows."""
+    n = rows.shape[0]
+    gs, starts = ragged_starts(group_sizes)
+    dense = ragged_to_dense(rows, gs, starts, c_max)
+    y = fused_ffn_quant(dense, stream, torch.clamp(gs, max=c_max),
+                        activation_fn=activation_fn, routed=n)
+    return dense_to_ragged(y, gs, starts, c_max, n)
 
 
 # K3's shared memory (csrc/fused_ffn_w8a8.cu `w8a8_smem`): bytes after each

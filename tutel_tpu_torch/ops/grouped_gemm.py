@@ -34,14 +34,16 @@ def _group_ids(ends, rows):
 
 def grouped_gemm(lhs, rhs, group_sizes):
     """out[t] = lhs[t] @ rhs[g(t)] over [T, K] rows grouped contiguously by
-    expert (group_sizes [E], sum <= T); rows past the sum are zeros. Returns
-    [T, N] in lhs's dtype."""
+    expert (group_sizes [E]); rows past the sum are zeros. A sum past T (a
+    truncating exchange dropped rows) cuts the groups at row T: each row
+    keeps its group, as in JAX. Returns [T, N] in lhs's dtype."""
     t, k = lhs.shape
     n = rhs.shape[-1]
     rhs = rhs.to(lhs.dtype)
     if lhs.is_cuda and lhs.dtype == torch.bfloat16 and k % 8 == 0 \
             and n % 8 == 0:
-        ends = torch.cumsum(group_sizes, 0).to(torch.int32)
+        # offsets past T would make the GEMM read and write past the rows
+        ends = torch.cumsum(group_sizes, 0).clamp(max=t).to(torch.int32)
         out = torch._grouped_mm(lhs.contiguous(), rhs.contiguous(),
                                 offs=ends)
         live = torch.arange(t, device=lhs.device) < ends[-1]

@@ -13,6 +13,12 @@ the tensor-core body's fragment mapping and tile walk, mirrored by
 `csrc/gemm_tc.cuh` and the kernel, so that the CPU tests can assemble its
 products lane by lane.
 
+`grouped_gemm_quant_ragged` runs K1 over rows grouped contiguously by
+expert (the ragged layout of expert parallelism's exchange): a gather
+into the dense [E, c_max, K] view, one K1 call, a gather back. It is the
+JAX function's counterpart; the experts' `apply_grouped` makes the dense
+view once for both layers and calls `quantized_ffn`.
+
 `quantized_ffn` takes the fused kernel K2 (`ops/fused_ffn.py`) whenever the
 expert params carry a fused stream that covers the output width, and runs
 K1 twice otherwise. The JAX package's VMEM ladders (`vmem_bytes`, the chunk
@@ -28,6 +34,7 @@ from ..csrc import build
 from .fused_ffn import (DTYPE_CODES, check_cuda, counts_i32, fused_ffn_quant,
                         live_rows)
 from .quant import QuantizedWeight, unpack
+from .ragged import dense_to_ragged, ragged_starts, ragged_to_dense
 
 
 def grouped_gemm_quant_reference(x, qw: QuantizedWeight, counts=None):
@@ -219,6 +226,19 @@ def _launch(x, qw: QuantizedWeight, counts, plan):
 
 
 grouped_gemm_quant.launches = 0
+
+
+def grouped_gemm_quant_ragged(rows, qw: QuantizedWeight, group_sizes, c_max):
+    """K1 over a ragged row layout (counterpart: tutel_tpu/ops/
+    grouped_gemm_pallas.py:264): rows [N, K] grouped contiguously by expert
+    (group_sizes [E]) -> [N, N_out]. Rows past c_max of a group are
+    dropped (zeros), as are the rows past sum(group_sizes). The kernel
+    plans from N routed rows."""
+    n = rows.shape[0]
+    gs, starts = ragged_starts(group_sizes)
+    dense = ragged_to_dense(rows, gs, starts, c_max)
+    y = grouped_gemm_quant(dense, qw, torch.clamp(gs, max=c_max), routed=n)
+    return dense_to_ragged(y, gs, starts, c_max, n)
 
 
 def quantized_ffn(x, params, ctx, activation_fn, output_dim):

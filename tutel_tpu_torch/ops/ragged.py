@@ -6,6 +6,11 @@ within an expert); a grouped GEMM (`ops.grouped_gemm`) runs over the
 ragged groups, and `decode_ragged` unsorts and combines. `encode_ragged`
 and `decode_ragged` are exact inverses and agree with `fast_encode` /
 `fast_decode` at a capacity at or above the largest count.
+
+`ragged_to_dense` / `dense_to_ragged` move rows grouped by expert into the
+dense [E, c_max, K] view the quantized kernels take and back
+(counterpart: tutel_tpu/ops/grouped_gemm_pallas.py:229-259); they are
+gathers, as the JAX functions are XLA gathers.
 """
 
 from typing import NamedTuple
@@ -57,3 +62,39 @@ def decode_ragged(rows, rd: RaggedDispatch, is_postscore=True):
     if is_postscore:
         unsorted = unsorted * rd.gates.to(rows.dtype)[:, :, None]
     return torch.sum(unsorted, dim=0)
+
+
+def ragged_starts(group_sizes):
+    """(sizes, first rows) of groups of contiguous rows, int64."""
+    gs = group_sizes.to(torch.int64)
+    return gs, torch.cumsum(gs, 0) - gs
+
+
+def ragged_to_dense(rows, gs, starts, c_max):
+    """rows [N, K] grouped by expert -> the dense [E, c_max, K] view:
+    dense[e, c] = rows[starts[e] + c] for c < gs[e] and inside rows, else
+    zero."""
+    n, e = rows.shape[0], gs.shape[0]
+    c = torch.arange(c_max, device=rows.device)[None, :]
+    src = torch.where(c < gs[:, None], starts[:, None] + c,
+                      torch.full_like(c, n)).clamp(max=n)
+    padded = torch.cat([rows, rows.new_zeros((1,) + tuple(rows.shape[1:]))])
+    return padded.index_select(0, src.reshape(-1)).reshape(
+        e, c_max, *rows.shape[1:])
+
+
+def dense_to_ragged(y, gs, starts, c_max, n):
+    """The dense [E, c_max, M] view -> ragged rows [n, M] (the inverse of
+    `ragged_to_dense`); rows past sum(gs), or past a group's c_max, are
+    zero."""
+    e = gs.shape[0]
+    rid = torch.arange(n, device=y.device)
+    gid = torch.searchsorted(torch.cumsum(gs, 0), rid, right=True)
+    gid = gid.clamp(0, e - 1)
+    within = rid - starts[gid]
+    live = (rid < gs.sum()) & (within < c_max)
+    src = torch.where(live, gid * c_max + within,
+                      torch.full_like(rid, e * c_max))
+    flat = y.reshape(e * c_max, -1)
+    padded = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
+    return padded.index_select(0, src)

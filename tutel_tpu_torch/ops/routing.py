@@ -6,8 +6,10 @@ by an exclusive cumsum over the k-major (K*S, E) one-hot stream, optional
 batch-prioritized order, gate normalization for k > 1, `token_mask` for
 padding rows, and the padded / dropless / capped capacity helpers.
 
-`torch.topk` and `jax.lax.top_k` may order tied scores differently; inputs
-compared across the two packages must be tie-free.
+The top-k is a stable descending sort, so tied scores go to the lower
+expert index first, as `jax.lax.top_k` orders them (`torch.topk` leaves
+the order of ties open); a row of equal scores (a zero padding row: the
+LM's expert-parallel padding, an idle serving slot) routes as in JAX.
 """
 
 from typing import NamedTuple, Optional
@@ -100,7 +102,9 @@ def extract_critical(scores, top_k, capacity, loss_fn=losses.gshard_loss,
             f"capacity must be >= 1, got {capacity}; raise capacity_factor "
             "or alignment (a zero-size expert buffer cannot be dispatched)")
 
-    topk_gates, topk_indices = torch.topk(scores, top_k, dim=1)   # [S, K]
+    topk_gates, topk_indices = torch.sort(scores, dim=1, descending=True,
+                                          stable=True)
+    topk_gates, topk_indices = topk_gates[:, :top_k], topk_indices[:, :top_k]
     indices_ks = topk_indices.t()                                  # [K, S]
     gates_ks = topk_gates.t()
     experts = torch.arange(num_global_experts, device=scores.device)

@@ -25,13 +25,20 @@ on construction (`auto_fuse=True`), so a decode step runs the fused
 kernel K2 (K3 for W4A8/W8A8 experts, `activation_bits=8`); with
 `auto_fuse=False` it runs K1 twice (K5 twice).
 Inference routing is deterministic, so unlike the JAX engine no key chain
-is carried.
+is carried. Over a layer of W > 1 ranks every rank runs the same engine
+over the same requests: each feeds the layer its rows of the globally
+packed buffer (max_batch / W of them; the scalar `valid_tokens` masks the
+tail, :29), the capacities are per (expert, source rank) buffers sized by
+the largest rank's valid rows (`_worst_cap`, `_spec_cap`), the probe is
+the largest over the ranks, and a chunk's states are all-gathered at its
+end, so every rank holds the same states and makes the same admissions.
 
 `LmDecodeEngine` (tutel_tpu/serving.py:526-1060) serves a whole
 `models.TransformerMoE`: prompts in, tokens out. A [max_batch]-slot KV
 cache; admissions prefill their prompts (grouped by padded length) and
 join; chunks of decode steps run over every slot, with greedy or sampled
-token selection and optional speculative MoE capacity with replay. Each
+token selection and optional speculative MoE capacity with replay (off
+over several ranks, as in the JAX engine: :640-650). Each
 decode step runs kernels K6 and K8, each prefill chunk K7, and the INT4
 MoE blocks K2 (K4 for SwiGLU `llama_ffn` experts, whose stream
 `auto_fuse` attaches the same way). The caches are updated in place.
@@ -46,14 +53,18 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from . import net
 from .ops.fused_ffn import prepare_fused_ffn_params
 from .ops.quant import QuantizedWeight
 
 
-def _maybe_fuse_expert_stream(params):
+def _maybe_fuse_expert_stream(params, layer=None):
     """Attach the fused weight stream to quantized expert params; no-op when
-    the experts aren't quantized, the shapes don't qualify or a stream is
-    there already."""
+    the experts aren't quantized, the shapes don't qualify, a stream is
+    there already, or the layer slices its experts (a stream holds whole
+    hidden rows)."""
+    if layer is not None and layer.sharded_count > 1:
+        return params
     experts = params.get("experts") if isinstance(params, dict) else None
     if not isinstance(experts, dict) or "fused_stream" in experts:
         return params
@@ -86,9 +97,12 @@ class MoeDecodeEngine:
             raise ValueError(f"unknown state_update {state_update!r}")
         self.layer = layer
         if auto_fuse:
-            params = _maybe_fuse_expert_stream(params)
+            params = _maybe_fuse_expert_stream(params, layer)
         self.params = params
         self.max_batch = int(max_batch)
+        if self.max_batch % layer.world_size:
+            raise ValueError(f"max_batch {self.max_batch} does not split "
+                             f"over {layer.world_size} ranks")
         self.top_k = top_k
         self.capacity_bucket = max(int(capacity_bucket), 1)
         self.state_update = state_update
@@ -151,15 +165,25 @@ class MoeDecodeEngine:
 
     def _worst_cap(self, n_valid: int) -> int:
         """Lossless for every routing: a token's top-k experts are
-        distinct, so no expert receives more rows than there are tokens."""
-        return self._bucket(n_valid)
+        distinct, so no expert receives more rows than there are tokens;
+        over W ranks a capacity is a per-(expert, source rank) buffer, so
+        the bound is a rank's rows (:220-231)."""
+        worst = self._bucket(n_valid)
+        if self.layer.world_size > 1:
+            local = -(-self.max_batch // self.layer.world_size)
+            worst = min(worst, self._bucket(min(n_valid, local)))
+        return worst
 
     def _spec_cap(self, n_valid: int, worst: int) -> int:
         """margin x the average per-expert load, raised to the largest need
-        observed at this fill, bucket-aligned, within [bucket, worst]."""
+        observed at this fill, bucket-aligned, within [bucket, worst]; over
+        W ranks the average is over the largest rank's valid rows
+        (:235-255)."""
         tk = min(int(self.top_k or self.layer.gates[0].top_k),
                  self.layer.num_global_experts)
-        avg = -(-tk * n_valid // self.layer.num_global_experts)
+        w = self.layer.world_size
+        s_loc = min(n_valid, -(-self.max_batch // w)) if w > 1 else n_valid
+        avg = -(-tk * s_loc // self.layer.num_global_experts)
         cap = int(avg * self.speculative_capacity)
         cap = max(cap, self._spec_hint.get(
             (self.top_k, self._bucket(n_valid)), 0))
@@ -189,6 +213,11 @@ class MoeDecodeEngine:
         self._buf is not modified, so a chunk can be replayed."""
         b = self._buf.index_select(0, perm)
         mask = torch.arange(self.max_batch, device=self.device) < n_valid
+        w = self.layer.world_size
+        if w > 1:                      # this rank's rows of the packed buffer
+            rows = self.max_batch // w
+            first = self.layer.rank_index * rows
+            b, mask = b[first:first + rows], mask[first:first + rows]
         mx = None
         for _ in range(n_steps):
             if with_probe:
@@ -201,6 +230,8 @@ class MoeDecodeEngine:
                 o = (r * torch.rsqrt(torch.mean(r * r, dim=-1, keepdim=True)
                                      + 1e-6)).to(b.dtype)
             b = o
+        if w > 1:
+            b = net.simple_all_gather(b, self.layer.world_group)
         new_buf = torch.where(amask[:, None], b.index_select(0, inv),
                               self._buf)
         return new_buf, b, mx
@@ -385,8 +416,10 @@ class LmDecodeEngine:
         if auto_fuse:
             params = dict(params)
             params["blocks"] = [
-                {**blk, "moe": _maybe_fuse_expert_stream(blk["moe"])}
-                if "moe" in blk else blk for blk in params["blocks"]]
+                {**blk, "moe": _maybe_fuse_expert_stream(
+                    blk["moe"], model.moe_layers.get(i))}
+                if "moe" in blk else blk
+                for i, blk in enumerate(params["blocks"])]
         self.params = params
         self.max_batch = int(max_batch)
         self.device = model.device
@@ -410,7 +443,8 @@ class LmDecodeEngine:
                       "spec_retries": 0}
         self.capacity_bucket = max(int(capacity_bucket), 1)
         self.speculative_capacity = float(speculative_capacity or 0)
-        if not model.moe_layers:
+        if not model.moe_layers or any(
+                lay.world_size > 1 for lay in model.moe_layers.values()):
             self.speculative_capacity = 0.0
         # observed needs are shared by the engines of one model: a hint
         # only raises the speculated capacity
