@@ -160,9 +160,41 @@ In order, it
      engine's greedy tokens equal the group-less LM's (lm_world1); then it
      destroys the group;
  13. prints one JSON line per check and phase, the {"kernels": [...]} line
-     (all ten kernels; the launches of step 12's path runs added, not
-     those of its kernel checks), and last
-     {"ok": true, "device": {...}}.
+     (all ten kernels; the launches of step 12's and step 14's path runs
+     added, not those of their kernel checks), and last
+     {"ok": true, "device": {...}};
+ 14. runs slice 6a under the same world-1 group, after step 12's phases
+     and before the group is destroyed: the decode server's INT4 layer
+     (128 experts x 2048 x 2048, relu, bfloat16, 256 tokens) with an
+     expert-choice gate at capacity_factor 2.0 (C = 4), once on the
+     two-call path, which must launch K1 exactly twice, and once on a
+     prepared fused stream, which must launch K2 exactly once, each every
+     token within 2e-2 of the same forward through the kernels' plain
+     twins, two calls bitwise equal, with event and device ms, the
+     kernel's share of the device time, the combine's device ms and the
+     padded top-2 layer's device ms on the same weights beside it; the
+     same layer at a small width in float32 on the card against the CPU
+     within 1e-5 (ec_layer); LmDecodeEngine over the round-5 LM2K of
+     step 8 built with gate_type="expert_choice" and capacity_factor 2.0
+     (moe_overrides capacity_factor 2.0, so the prefill also runs two
+     experts a token), 64 prompts of 1664 tokens, 64 new tokens each (cut
+     from step 8's 320), which may launch only K2, K6, K7 and K8, with
+     tokens/s, prefill_s, ms a decode step, tokens_sha1 and a profiled
+     decode chunk (ec_lm_serve); small float32 EC engines on the card
+     against the CPU: LmDecodeEngine's greedy tokens identical and
+     apply_decode logits within 1e-4, MoeDecodeEngine within 1e-4
+     (ec_engines_vs_cpu); examples/helloworld_expert_choice.py at
+     helloworld's default width (16 x 512 tokens, 2048 x 2048, 4 experts,
+     capacity_factor 2.0, float32, 10 steps; finite, falling losses, ms a
+     step, TFLOP/s with 2 for min(k, E), peak memory) and at its defaults
+     on the card against the CPU within 1e-4 (ec_train);
+     helloworld_pipeline (GPipe) and helloworld_1f1b at one stage
+     (model_dim 2048, hidden 2048, 4 experts, batch 4096, n_micro 8, 5
+     steps, float32), each one's losses within 1e-5 of the same model
+     trained with its microbatches in sequence, ms a step and peak
+     memory, 1F1B's loss and gradients within 1e-5 of GPipe's, and a
+     stage whose body is local_forward of a top-2 and of an EC layer
+     against the sequential run (pipeline_world1).
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
@@ -877,12 +909,15 @@ def serve(layer, params, n_requests, steps, auto_fuse, seed):
     return eng, seconds
 
 
-def small_engine_check(activation_bits=0, tol=SMALL_TOL, activation_fn=None):
+def small_engine_check(activation_bits=0, tol=SMALL_TOL, activation_fn=None,
+                       gate=None):
     """A small INT4 engine on the card (kernels) against the same engine on
     the CPU (plain twins), float32, fused and two-call paths; W4A8 with
     activation_bits=8. A lifted activation_fn runs the two-call path only:
-    the fused kernels take activation codes."""
-    kw = dict(gate_type={"type": "top", "k": 2, "capacity_factor": 0.0},
+    the fused kernels take activation codes. gate: the gate_type (None:
+    top-2, dropless)."""
+    kw = dict(gate_type=gate or {"type": "top", "k": 2,
+                                 "capacity_factor": 0.0},
               experts={"type": "ffn", "num_experts_per_device": 8,
                        "hidden_size_per_expert": 512,
                        "activation_bits": activation_bits,
@@ -1176,16 +1211,19 @@ def read_launches(path, must):
     return counts
 
 
-def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed):
+def lm_serve(model, params, n_requests, prompt_len, new_tokens, seed,
+             moe_overrides=None):
     """Serve n_requests prompts through a fresh LmDecodeEngine of 64 slots
-    (chunk 16, speculative capacity 4.0): admit and prefill them all, then
-    decode until every request finishes. Returns the phase's numbers."""
+    (chunk 16, speculative capacity 4.0, off for an expert-choice gate):
+    admit and prefill them all, then decode until every request finishes.
+    Returns the phase's numbers."""
     rng = np.random.default_rng(seed)
     reqs = [LmRequest(uid=i, prompt=rng.integers(
         0, model.cfg.vocab_size, prompt_len).astype(np.int32),
         max_new_tokens=new_tokens) for i in range(n_requests)]
     eng = LmDecodeEngine(model, params, max_batch=64,
-                         speculative_capacity=4.0)
+                         speculative_capacity=4.0,
+                         moe_overrides=moe_overrides)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
@@ -1263,7 +1301,7 @@ def device_time(prof):
     return by_name, n_by_name, busy, spans[-1][1] - spans[0][0], len(spans)
 
 
-def lm_profile(model, params, seed, steps=16):
+def lm_profile(model, params, seed, steps=16, moe_overrides=None):
     """One decode chunk of the full-width LM engine (64 slots, 1664-token
     prompts) under torch.profiler: the device's busy share of the chunk's
     span and the kernels with the most device time. The profiler slows the
@@ -1271,7 +1309,8 @@ def lm_profile(model, params, seed, steps=16):
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed)
     eng = LmDecodeEngine(model, params, max_batch=64,
-                         speculative_capacity=4.0)
+                         speculative_capacity=4.0,
+                         moe_overrides=moe_overrides)
     for i in range(64):
         eng.try_add(LmRequest(uid=i, prompt=rng.integers(
             0, model.cfg.vocab_size, 1664).astype(np.int32),
@@ -1358,7 +1397,7 @@ def moe_profiles(layer, layer_w4a8, params, smi):
                                         SEED + 9), "card": smi}), flush=True)
 
 
-def lm_prefill_profile(model, params, seed, ffn_kernel):
+def lm_prefill_profile(model, params, seed, ffn_kernel, moe_overrides=None):
     """One admission and prefill of 64 prompts of 1664 tokens (13 chunks
     of 128) into a fresh full-width LM engine under torch.profiler: the
     device time of K7 and of the expert kernel in the whole prefill, in
@@ -1367,7 +1406,8 @@ def lm_prefill_profile(model, params, seed, ffn_kernel):
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed)
     eng = LmDecodeEngine(model, params, max_batch=64,
-                         speculative_capacity=4.0)
+                         speculative_capacity=4.0,
+                         moe_overrides=moe_overrides)
     reqs = [LmRequest(uid=i, prompt=rng.integers(
         0, model.cfg.vocab_size, 1664).astype(np.int32), max_new_tokens=16)
         for i in range(64)]
@@ -1399,7 +1439,8 @@ def lm_prefill_profile(model, params, seed, ffn_kernel):
     return out
 
 
-def small_lm_check(expert_type="ffn", kv_modes=(8, 0)):
+def small_lm_check(expert_type="ffn", kv_modes=(8, 0), gate_type="top",
+                   capacity_factor=0.0):
     """A small LM engine on the card against the same engine on the CPU,
     float32, with INT4 experts of `expert_type` and the given caches:
     greedy tokens identical, and apply_decode logits (after the same
@@ -1409,8 +1450,9 @@ def small_lm_check(expert_type="ffn", kv_modes=(8, 0)):
         cfg = TransformerMoEConfig(
             vocab_size=97, max_len=256, model_dim=256, num_heads=2,
             num_kv_heads=1, num_layers=2, ffn_hidden=512, moe_every=2,
-            num_local_experts=4, top_k=2, capacity_factor=0.0,
-            expert_hidden=512, kv_bits=kv_bits, expert_type=expert_type)
+            num_local_experts=4, top_k=2, capacity_factor=capacity_factor,
+            expert_hidden=512, kv_bits=kv_bits, expert_type=expert_type,
+            gate_type=gate_type)
         models = [TransformerMoE(cfg, device=d) for d in ("cpu", "cuda")]
         params = lm_params(models[0], torch.Generator().manual_seed(SEED))
 
@@ -2269,20 +2311,457 @@ def slice5b_phases(smi, env, plain_losses, bandwidth, zero_cpu):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Slice 6a: expert-choice routing, local_forward / param_specs, pipelines
+# ---------------------------------------------------------------------------
+
+EC_CF = 2.0                # expert choice: two experts a token on average
+
+
+def ec_decode_layer(group=None):
+    """The decode server's INT4 layer (128 experts x 2048 x 2048, no biases,
+    relu, bfloat16) with an expert-choice gate at EC_CF."""
+    return moe.moe_layer(
+        gate_type={"type": "expert_choice", "capacity_factor": EC_CF},
+        model_dim=2048, dtype=torch.bfloat16, device="cuda", group=group,
+        experts={"type": "ffn", "num_experts_per_device": 128,
+                 "hidden_size_per_expert": 2048, "has_fc1_bias": False,
+                 "has_fc2_bias": False})
+
+
+def ec_routing(layer, params, x):
+    """The layer's expert-choice routing of x at EC_CF (one rank)."""
+    from tutel_tpu_torch.ops import expert_choice as ec_ops
+    scores = torch.softmax(layer.gates[0].apply(params["gates"][0], x), 1)
+    cap = max(1, int(EC_CF * x.shape[0] / layer.num_global_experts))
+    return ec_ops.expert_choice_routing(scores, cap)
+
+
+def ec_twin(layer, params, x):
+    """The expert-choice forward of `layer` with its experts through the
+    kernels' plain twins (K2's over a fused stream, else K1's twice)."""
+    from tutel_tpu_torch.ops import expert_choice as ec_ops
+    ec = ec_routing(layer, params, x)
+    y = ec_ops.ec_encode(x, ec)
+    ex = params["experts"]
+    if "fused_stream" in ex:
+        y = fused_ffn.fused_ffn_quant_reference(y, ex["fused_stream"], None,
+                                                activations.relu)
+    else:
+        y = gq.two_call_ffn(lambda a, w, c: gq.grouped_gemm_quant_reference(
+            a, w, c), y, ex, None, activations.relu, layer.model_dim)
+    return ec_ops.ec_decode(y, ec, x.shape[0])
+
+
+def kernel_ms(fn, name, reps=REPS):
+    """(device busy ms a call, device ms a call of `name`'s kernels) from
+    torch.profiler over `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name, _, busy, _, _ = device_time(prof)
+    mine = sum(t for n, t in by_name.items() if of_kernel(n, SYMBOLS[name]))
+    return busy / 1e3 / reps, mine / 1e3 / reps
+
+
+def to_device(tree, device):
+    """A parameter tree on `device`, quantized weights and streams
+    included."""
+    import dataclasses
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: getattr(tree, f.name).to(device)
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    return tree.to(device)
+
+
+def ec_small_layer_vs_cpu():
+    """The EC layer at a small width (16 INT4 experts of 256 x 512, 64
+    tokens) in float32 on the card against the CPU, two-call and fused:
+    the largest max |card - cpu| / max |cpu|."""
+    kw = dict(gate_type={"type": "expert_choice", "capacity_factor": EC_CF},
+              experts={"type": "ffn", "num_experts_per_device": 16,
+                       "hidden_size_per_expert": 512},
+              model_dim=256)
+    cpu, card = (moe.moe_layer(device=d, **kw) for d in ("cpu", "cuda"))
+    params = cpu.init(torch.Generator().manual_seed(SEED))
+    params["experts"] = quant.quantize_expert_params(params["experts"], 4)
+    fused = {**params, "experts": fused_ffn.prepare_fused_ffn_params(
+        params["experts"])}
+    x = torch.randn(64, 256, generator=torch.Generator().manual_seed(SEED))
+    worst = 0.0
+    with torch.no_grad():
+        for p in (params, fused):
+            ref, _ = cpu(p, x)
+            got, _ = card(to_device(p, "cuda"), x.to("cuda"))
+            worst = max(worst, float((got.cpu() - ref).abs().max()
+                                     / ref.abs().max()))
+    if not worst <= F32_TOL:
+        raise RuntimeError(f"the float32 EC layer on the card disagrees with "
+                           f"the CPU: {worst} > {F32_TOL}")
+    return worst
+
+
+def ec_layer(smi):
+    """The expert-choice decode layer (256 tokens, C = 4) on the two-call
+    path (exactly K1 x 2) and on a fused stream (exactly K2 x 1): every
+    token within BF16_TOL of the same forward through the twins, two calls
+    bitwise equal, event and device ms, the kernel's share and the
+    combine's device ms; the padded top-2 layer's device ms beside them
+    (the same weights, its dropless capacity); then the small float32
+    layer against the CPU."""
+    from tutel_tpu_torch.ops import expert_choice as ec_ops
+    layer = ec_decode_layer()
+    params = decode_params(layer)
+    fused = {**params, "experts": fused_ffn.prepare_fused_ffn_params(
+        params["experts"])}
+    x = torch.randn(256, 2048, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 60), device="cuda").to(
+        torch.bfloat16)
+    report, total = {}, {k: 0 for k in KERNELS}
+    with torch.no_grad():
+        ec = ec_routing(layer, params, x)
+        report["capacity"] = ec.capacity
+        for path, p, kernel, n in (("two_call", params, "grouped_gemm_quant",
+                                    2),
+                                   ("fused", fused, "fused_ffn_quant", 1)):
+            def fwd(p=p):
+                return layer(p, x)[0]
+            reset_launches()
+            out = fwd()
+            torch.cuda.synchronize()
+            counts = read_launches(f"ec_layer {path}", {kernel})
+            if counts[kernel] != n:
+                raise RuntimeError(f"the EC layer's {path} path launched "
+                                   f"{counts}: expected {kernel} x {n}")
+            for k, c in counts.items():
+                total[k] += c
+            if not torch.equal(out, fwd()):
+                raise RuntimeError(f"two EC {path} forwards differ")
+            ref = ec_twin(layer, p, x)
+            err = per_token_rel_err(out, ref)
+            if not (torch.isfinite(out.float()).all() and err <= BF16_TOL):
+                raise RuntimeError(f"the EC {path} forward against its twin "
+                                   f"path: per-token error {err}")
+            busy, mine = kernel_ms(fwd, kernel)
+            report[path] = {
+                "launches": counts, "per_token_rel_err": err,
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                "bitwise_repeat": True, "ms": median_ms(fwd),
+                "device_ms": busy, "kernel_device_ms": mine,
+                "kernel_share": mine / busy,
+                "twin_ms": median_ms(lambda p=p: ec_twin(layer, p, x))}
+        y = torch.randn(128, ec.capacity, 2048, generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 61), device="cuda").to(
+            torch.bfloat16)
+        report["combine_device_ms"] = busy_ms(
+            lambda: ec_ops.ec_decode(y, ec, 256))
+        top2 = decode_layer(0)
+        cap = top2.resolve_capacity(params, x)
+        report["top2_padded"] = {"capacity": cap, "device_ms": busy_ms(
+            lambda: top2(params, x, capacity_override=cap)),
+            "ms": median_ms(lambda: top2(params, x, capacity_override=cap))}
+    report["small_float32_vs_cpu"] = ec_small_layer_vs_cpu()
+    return {"phase": "ec_layer", "tokens": 256, "experts": 128,
+            "capacity_factor": EC_CF, "tol": BF16_TOL, "f32_tol": F32_TOL,
+            **report, "card": smi}, total
+
+
+EC_LM_NEW_TOKENS = 64      # the top-2 serve's 320, cut to keep the run short
+
+
+def ec_lm_serve(smi):
+    """LM2K with an expert-choice gate at EC_CF (its own capacity_factor 0.0
+    would fail EC's cf > 0): 64 prompts of 1664 tokens, EC_LM_NEW_TOKENS new
+    each, chunk 16, with moe_overrides capacity_factor EC_CF, so the prefill
+    runs two experts a token too (without it the engine's prefill passes
+    capacity_override = its chunk's tokens, which the EC rule takes as C:
+    every expert takes every prompt token). Launches only K2, K6, K7, K8."""
+    lm = TransformerMoE(TransformerMoEConfig(**{
+        **LM_CONFIG, "gate_type": "expert_choice",
+        "capacity_factor": EC_CF}, dtype=torch.bfloat16), device="cuda")
+    lm_p = lm_params(lm, torch.Generator(device="cuda").manual_seed(SEED))
+    ov = {"capacity_factor": EC_CF}
+    warm = lm_serve(lm, lm_p, 64, 1664, 16, SEED + 1, ov)
+    reset_launches()
+    run = lm_serve(lm, lm_p, 64, 1664, EC_LM_NEW_TOKENS, SEED, ov)
+    counts = read_launches("ec_lm serve", {"fused_ffn_quant", "decode_attn",
+                                           "prefill_attn", "kv_write"})
+    prof = lm_profile(lm, lm_p, SEED + 2, moe_overrides=ov)
+    prefill = lm_prefill_profile(lm, lm_p, SEED + 3, "fused_ffn_quant", ov)
+    del lm, lm_p
+    return {"phase": "ec_lm_serve", "moe_overrides": ov,
+            "warmup_seconds": warm["seconds"], **run, "launches": counts,
+            "decode_profile": prof, "prefill_profile": prefill,
+            "card": smi}, counts
+
+
+def ec_engines_vs_cpu():
+    """Small float32 engines with an expert-choice gate on the card against
+    the CPU: the LM engine's greedy tokens identical and apply_decode
+    logits within SMALL_TOL, the MoE engine's outputs within SMALL_TOL."""
+    gate = {"type": "expert_choice", "capacity_factor": EC_CF}
+    return {"phase": "ec_engines_vs_cpu", "tol": SMALL_TOL,
+            "lm_max_rel_err": small_lm_check(kv_modes=(8,),
+                                             gate_type="expert_choice",
+                                             capacity_factor=EC_CF),
+            "greedy_tokens": "identical",
+            "moe_max_rel_err": small_engine_check(gate=gate)}
+
+
+def ec_example_args(device, full):
+    from tutel_tpu_torch.examples import helloworld_expert_choice as hec
+    argv = ["--device", device]
+    if full:   # helloworld's default width, the example's experts and cf
+        argv += ["--batch", "16", "--num_tokens", "512", "--model_dim",
+                 "2048", "--hidden_size", "2048", "--num_steps", "10"]
+    return hec, hec.build_args(argv)
+
+
+def timed_run(module, args):
+    """module.run(args) with the host time between its step lines (each
+    line follows a loss read back to the host): (losses, step ms)."""
+    marks = [time.perf_counter()]
+
+    def log(line):
+        if line.startswith("STEP-"):
+            marks.append(time.perf_counter())
+    losses = module.run(args, log=log)
+    return losses, [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+
+
+def ec_train(smi, cpu_losses):
+    """examples/helloworld_expert_choice.py at helloworld's default width
+    (16 x 512 tokens, 2048 x 2048, the example's 4 experts and cf 2.0,
+    float32, 10 steps): finite, falling losses, ms a step, TFLOP/s by the
+    helloworld formula with cf 2 for min(k, E), peak memory; then the
+    example's defaults on the card against the CPU (cpu_losses)."""
+    hec, args = ec_example_args("cuda", True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms = timed_run(hec, args)
+    launches = read_launches("ec_train", set())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"ec_train losses {losses}: not finite, or the "
+                           "last is not below the first")
+    median = statistics.median(step_ms[-5:])
+    flops = (args.batch * args.num_tokens * args.model_dim
+             * args.hidden_size * 4 * 3 * EC_CF)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, dargs = ec_example_args("cuda", False)
+    card = hec.run(dargs, log=lambda *_: None)
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu_losses))
+    if not err <= TRAIN_TOL:
+        raise RuntimeError(f"the EC example on the card against the CPU: "
+                           f"{err} > {TRAIN_TOL}")
+    return {"phase": "ec_train", "config": {k: getattr(args, k) for k in (
+        "batch", "num_tokens", "model_dim", "hidden_size",
+        "num_local_experts", "capacity_factor", "num_steps")},
+        "losses": losses, "step_ms": step_ms,
+        "median_step_ms_last5": median, "tflops": flops / median / 1e9,
+        "f32_peak_share": flops / median / 1e-3 / F32_PEAK,
+        "peak_mem_gb": peak, "launches": launches,
+        "defaults_vs_cpu_rel_err": err, "tol": TRAIN_TOL, "card": smi}
+
+
+PIPE_ARGV = ["--device", "cuda", "--num_stages", "1", "--model_dim", "2048",
+             "--hidden", "2048", "--num_experts", "4", "--batch", "4096",
+             "--n_micro", "8", "--num_steps", "5"]
+PIPE_TOL = 1e-5            # pipeline against microbatches in sequence
+
+
+def sequential_losses(module, args):
+    """The example's model and loss trained with its microbatches run in
+    sequence, without the pipeline: the losses of args.num_steps SGD
+    steps."""
+    from tutel_tpu_torch.examples import helloworld_pipeline as hp
+    _, _, layer, local, x = hp.setup(args)
+    stage = hp.stage_fn(layer)
+    target = torch.sin(torch.cumsum(x, dim=-1))
+    nm = args.n_micro
+
+    def loss_fn(p):
+        p0 = tree_replace(p, [t[0] for t in tree_leaves(p)])
+        ys, aux = [], 0.0
+        for xm in x.reshape(nm, -1, x.shape[-1]):
+            y, a = stage(p0, xm)
+            ys.append(y)
+            aux = aux + a
+        if module is hp:
+            y = torch.cat(ys)
+            return torch.mean((y - target) ** 2) + 0.01 * aux / nm
+        return sum((y.float() ** 2).sum() / args.batch for y in ys) / nm \
+            + aux / nm
+    losses = []
+    for _ in range(args.num_steps):
+        local, loss, _ = sgd_step(loss_fn, local, args.lr)
+        losses.append(float(loss))
+    return losses
+
+
+def rel_close(a, b):
+    return float((a - b).abs().max()) <= PIPE_TOL * max(
+        float(b.abs().max()), 1e-30)
+
+
+def pipeline_world1(smi, env):
+    """helloworld_pipeline (GPipe) and helloworld_1f1b at one stage (the
+    world-1 group; model_dim 2048, hidden 2048, 4 experts, batch 4096,
+    n_micro 8, 5 steps, float32): each one's losses against the same model
+    trained with the microbatches in sequence, ms a step and peak memory;
+    1F1B's loss and gradients against GPipe's on the same loss; then a
+    stage whose body is local_forward of a top-2 and of an EC layer:
+    GPipe's outputs and 1F1B's loss against the sequential run."""
+    from tutel_tpu_torch.examples import helloworld_1f1b as h1
+    from tutel_tpu_torch.examples import helloworld_pipeline as hp
+    from tutel_tpu_torch.parallel import (local_stage_params, pipeline,
+                                          pipeline_1f1b, stack_stage_params)
+    out = {"phase": "pipeline_world1", "world_size": env.global_size,
+           "backend": env.backend, "argv": PIPE_ARGV, "tol": PIPE_TOL}
+    for name, module in (("gpipe", hp), ("1f1b", h1)):
+        args = module.build_args(PIPE_ARGV)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, step_ms = timed_run(module, args)
+        read_launches(f"pipeline_world1 {name}", set())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        seq = sequential_losses(module, args)
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, seq))
+        if not (all(np.isfinite(losses)) and err <= PIPE_TOL):
+            raise RuntimeError(f"{name}: losses {losses} against the "
+                               f"sequential {seq}: {err}")
+        out[name] = {"losses": losses, "sequential_losses": seq,
+                     "max_rel_err": err, "step_ms": step_ms,
+                     "median_step_ms_last3": statistics.median(step_ms[-3:]),
+                     "peak_mem_gb": peak}
+        torch.cuda.empty_cache()
+    # 1F1B's gradients against GPipe's on the 1F1B example's loss
+    args = h1.build_args(PIPE_ARGV)
+    _, mesh, layer, local, x = hp.setup(args)
+    stage = hp.stage_fn(layer)
+
+    def loss_fn(y):
+        return (y.float() ** 2).sum() / args.batch
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(local)]
+    y, aux = pipeline(stage, 1, mesh, n_micro=args.n_micro, has_aux=True)(
+        tree_replace(local, leaves), x)
+    gp = sum(loss_fn(ym) for ym in y.reshape(args.n_micro, -1, y.shape[-1])) \
+        / args.n_micro + aux
+    gp_grads = torch.autograd.grad(gp, leaves)
+    loss, grads = pipeline_1f1b(stage, loss_fn, 1, mesh, n_micro=args.n_micro,
+                                has_aux=True)(local, x)
+    gp = gp.detach()
+    if not (abs(float(loss) - float(gp)) <= PIPE_TOL * abs(float(gp))
+            and all(rel_close(b, a) for a, b in zip(gp_grads,
+                                                     tree_leaves(grads)))):
+        raise RuntimeError("1F1B's loss or gradients differ from GPipe's")
+    out["1f1b_vs_gpipe"] = {"loss": float(loss), "gpipe_loss": float(gp),
+                            "grads_within_tol": True}
+    # one training step of each schedule on that loss, profiled: device
+    # busy share, time by kernel kind, the step's peak memory
+    fwd = pipeline(stage, 1, mesh, n_micro=args.n_micro, has_aux=True)
+    train = pipeline_1f1b(stage, loss_fn, 1, mesh, n_micro=args.n_micro,
+                          has_aux=True)
+
+    def gpipe_loss(p):
+        y, aux = fwd(p, x)
+        return sum(loss_fn(ym) for ym in y.reshape(
+            args.n_micro, -1, y.shape[-1])) / args.n_micro + aux
+    for name, step in (("gpipe", lambda: sgd_step(gpipe_loss, local,
+                                                  args.lr)),
+                       ("1f1b", lambda: train(local, x))):
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profiled(step)
+        out[f"{name}_step_profile"] = {
+            **prof, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "ms": median_ms(step, reps=5)}
+    # a stage whose body is local_forward
+    for gate in ({"type": "top", "k": 2, "capacity_factor": 1.0},
+                 {"type": "expert_choice", "capacity_factor": EC_CF}):
+        lay = moe.moe_layer(
+            gate_type=gate, model_dim=args.model_dim, device="cuda",
+            group=env, experts={"type": "ffn",
+                                "num_experts_per_device": args.num_experts,
+                                "hidden_size_per_expert": args.hidden})
+        body = lay.local_forward()
+
+        def lstage(p, h, body=body):
+            o, a = body(p, h)
+            return h + o, a
+        p1 = local_stage_params(stack_stage_params([lay.init(
+            torch.Generator(device="cuda").manual_seed(SEED + 70))]), mesh)
+        with torch.no_grad():
+            y, aux = pipeline(lstage, 1, mesh, n_micro=args.n_micro,
+                              has_aux=True)(p1, x)
+            p0 = tree_replace(p1, [t[0] for t in tree_leaves(p1)])
+            seq, total = [], 0.0
+            for xm in x.reshape(args.n_micro, -1, x.shape[-1]):
+                ym, a = lstage(p0, xm)
+                seq.append(ym)
+                total = total + loss_fn(ym) + a
+            seq = torch.cat(seq)
+        loss, _ = pipeline_1f1b(lstage, loss_fn, 1, mesh,
+                                n_micro=args.n_micro, has_aux=True)(p1, x)
+        want = float(total) / args.n_micro
+        if not (rel_close(y, seq) and abs(float(loss) - want)
+                <= PIPE_TOL * abs(want)):
+            raise RuntimeError(f"local_forward stage ({gate['type']}): the "
+                               f"pipelines differ from the sequential run")
+        out[f"local_forward_{gate['type']}"] = {
+            "gpipe_vs_sequential": "within tol", "1f1b_loss": float(loss),
+            "sequential_loss": want}
+    return out
+
+
+def slice6a_phases(smi, env, ec_cpu_losses):
+    """Slice 6a's phases under the world-1 group, each printing its JSON
+    line; returns the kernels' launches in their path runs (ec_layer's and
+    ec_lm_serve's)."""
+    total = {k: 0 for k in KERNELS}
+    for phase in (lambda: ec_layer(smi), lambda: ec_lm_serve(smi),
+                  lambda: (ec_engines_vs_cpu(), None),
+                  lambda: (ec_train(smi, ec_cpu_losses), None),
+                  lambda: (pipeline_world1(smi, env), None)):
+        line, counts = phase()
+        print(json.dumps(line), flush=True)
+        for k, n in (counts or {}).items():
+            total[k] += n
+        torch.cuda.empty_cache()
+    return total
+
+
 def ep_phases(smi, plain_losses, bandwidth):
-    """Slice 5a's phases, then slice 5b's, in order, each printing its JSON
-    line; the process group is destroyed at the end, so the script can
-    exit. Returns the kernels' launches in slice 5b's phases."""
+    """Slice 5a's phases, then slice 5b's, then slice 6a's, in order, each
+    printing its JSON line; the process group is destroyed at the end, so
+    the script can exit. Returns the kernels' launches in slice 5b's and
+    6a's phases."""
     print(json.dumps(megablocks_decode(smi)), flush=True)
     torch.cuda.empty_cache()
     cpu_ref = net_calls("cpu")
-    zero_cpu = zero_run("cpu")              # no process group on the CPU
+    # the CPU references, before the NCCL group exists
+    zero_cpu = zero_run("cpu")
+    hec, cpu_args = ec_example_args("cpu", False)
+    ec_cpu = hec.run(cpu_args, log=lambda *_: None)
     env = init_world1()
     try:
         print(json.dumps(net_nccl(cpu_ref, env)), flush=True)
         print(json.dumps(ep_train_world1(smi, env, plain_losses)),
               flush=True)
-        return slice5b_phases(smi, env, plain_losses, bandwidth, zero_cpu)
+        total = slice5b_phases(smi, env, plain_losses, bandwidth, zero_cpu)
+        for k, n in slice6a_phases(smi, env, ec_cpu).items():
+            total[k] += n
+        return total
     finally:
         system.destroy()
         torch.cuda.empty_cache()

@@ -1,12 +1,14 @@
 """Pluggable gate registry (counterpart: tutel_tpu/gates/__init__.py).
-Ported: the 'top' and 'cosine_top' gates."""
+Ported: the 'top', 'cosine_top' and 'expert_choice' gates."""
 
 from . import cosine_top  # noqa: F401
+from . import expert_choice  # noqa: F401
 from . import top  # noqa: F401
 
 _REGISTRY = {
     "top": top.Gate,
     "cosine_top": cosine_top.Gate,
+    "expert_choice": expert_choice.Gate,
 }
 
 

@@ -37,6 +37,16 @@ pure-EP exchange of the routed rows only (`ops.ragged_ep`), its receive
 buffer `max_recv` rows, probed (`resolve_max_recv`: the most rows any rank
 receives, one all-reduce and one host sync) unless given.
 
+Expert choice (a gate with `expert_choice = True`, :491-514, :972-1094):
+each expert takes its top-C tokens of the world's pool (`_ec_body`,
+`ops.expert_choice`); over several ranks the [s, E] scores are
+all-gathered and only the selected rows cross the ragged exchange, or,
+at adaptive_r == 0, the weights are gathered and no row crosses.
+
+Composing under an outer schedule (:670-780): `local_forward` is the
+body at a static capacity, without the dropless probe; `param_specs`
+gives the placement of `shard_params` as a tree of per-dim mesh axes.
+
 Gradients. The collectives are `net`'s autograd Functions, so
 `loss.backward()` on every rank, with `loss` this rank's share of the
 global loss, sends the cotangents back through the exchanges. The gate
@@ -431,6 +441,11 @@ class MOELayer:
         (dropless pure expert parallelism over several ranks), into a
         receive buffer of max_recv rows (None: probed; rows past an
         explicit bound are dropped and come back as zeros).
+
+        An expert-choice gate (`expert_choice = True`) takes C =
+        capacity_override, else max(1, int(capacity_factor * N / E)) over
+        the global pool of N = world * rows tokens (capacity_factor > 0),
+        aligned and at most N; l_aux is the router z-loss.
         """
         if inequivalent_tokens and valid_tokens is None:
             raise ValueError(
@@ -463,30 +478,27 @@ class MOELayer:
         reserve_shape = original_shape[-reserve_dims:]
         x2 = self._flat(x, reserve_dims)
         samples = x2.shape[0]
-        gate_params = params["gates"][gate_index]
-        if w > 1 and torch.is_grad_enabled():
-            gate_params = {k: net.allreduce_backward(v, self.world_group)
-                           if v.requires_grad else v
-                           for k, v in gate_params.items()}
+        gate_params = self._gate_params(params, gate_index)
 
         alignment = self._alignment(deg, megablocks_size)
         noise = self._noise(gate_index, samples, training, key, x2.device)
-        if capacity_override is not None:
-            capacity = routing_ops.align_capacity(int(capacity_override),
-                                                  alignment)
-        elif cf > 0:
-            capacity = self._static_capacity(samples, top_k, cf,
-                                             megablocks_size, deg)
-        else:
+        if use_ragged_ep and self._is_ec(gate_index):
+            raise ValueError(
+                "expert-choice routing has its own exactly-sized ragged "
+                "exchange; use_ragged_ep does not apply")
+        capacity = self._fixed_capacity(gate_index, samples, top_k, cf,
+                                        capacity_override, megablocks_size,
+                                        deg)
+        if capacity is None:
             needed = int(self._count_needed(gate_params, x2, gate_index,
                                             top_k, noise))
             capacity = max(1, needed)
             if cf < 0:
                 capacity = min(capacity, routing_ops.capped_capacity_limit(
                     samples, self.num_global_experts, top_k, cf))
-            capacity = routing_ops.align_capacity(capacity, alignment)
-        capacity = min(capacity, routing_ops.align_capacity(
-            top_k * samples, alignment))
+            capacity = min(routing_ops.align_capacity(capacity, alignment),
+                           routing_ops.align_capacity(top_k * samples,
+                                                      alignment))
 
         ragged_max_recv = 0
         if use_ragged_ep:
@@ -518,6 +530,68 @@ class MOELayer:
 
         token_mask, n_valid = self._token_mask(valid_tokens, samples,
                                                x2.device)
+        out, l_aux = self._forward(
+            gate_params, params["experts"], x2, gate_index, top_k, capacity,
+            self.adaptive_degree, training, noise, token_mask, n_valid,
+            megablocks_size, ragged_max_recv)
+        out = out.reshape(*original_shape[:-reserve_dims],
+                          *reserve_shape[:-1], -1)
+        return out, l_aux
+
+    def _is_ec(self, gate_index):
+        return bool(getattr(self.gates[gate_index], "expert_choice", False))
+
+    def _gate_params(self, params, gate_index):
+        """The gate's parameters; over a world their gradient is the sum
+        over the ranks (a replicated input's)."""
+        gate_params = params["gates"][gate_index]
+        if self.world_size > 1 and torch.is_grad_enabled():
+            gate_params = {k: net.allreduce_backward(v, self.world_group)
+                           if v.requires_grad else v
+                           for k, v in gate_params.items()}
+        return gate_params
+
+    def _ec_capacity(self, samples, cf, capacity_override, alignment):
+        """Expert choice's C over the global pool of world * samples
+        tokens (:491-514)."""
+        num_samples = samples * self.world_size
+        if capacity_override is not None:
+            cap = int(capacity_override)
+        else:
+            if not cf > 0:
+                raise ValueError("expert-choice needs capacity_factor > 0")
+            cap = max(1, int(cf * num_samples / self.num_global_experts))
+        return min(routing_ops.align_capacity(cap, alignment), num_samples)
+
+    def _fixed_capacity(self, gate_index, samples, top_k, cf,
+                        capacity_override, megablocks_size, deg):
+        """The capacity no probe decides: expert choice's, an override's or
+        capacity_factor > 0's, aligned (a token-choice one at most the
+        top_k * samples rows); None for the dropless and capped rules."""
+        alignment = self._alignment(deg, megablocks_size)
+        if self._is_ec(gate_index):
+            return self._ec_capacity(samples, cf, capacity_override,
+                                     alignment)
+        if capacity_override is not None:
+            capacity = routing_ops.align_capacity(int(capacity_override),
+                                                  alignment)
+        elif cf > 0:
+            capacity = self._static_capacity(samples, top_k, cf,
+                                             megablocks_size, deg)
+        else:
+            return None
+        return min(capacity, routing_ops.align_capacity(top_k * samples,
+                                                        alignment))
+
+    def _forward(self, gate_params, expert_params, x2, gate_index, top_k,
+                 capacity, r, training, noise, token_mask, n_valid,
+                 megablocks_size, ragged_max_recv):
+        """The body at a resolved capacity and adaptive_r = r: routing,
+        dispatch, experts, combine. Returns ([rows, O], l_aux)."""
+        w = self.world_size
+        if self._is_ec(gate_index):
+            return self._ec_body(gate_params, expert_params, x2, gate_index,
+                                 capacity, r, training, noise, token_mask)
         crit, l_aux = self._routing(gate_params, x2, gate_index, top_k,
                                     capacity, noise, token_mask)
         # dispatch_count and routed (the rows the experts get, a host
@@ -528,33 +602,123 @@ class MOELayer:
             dispatch_count=crit.dispatch_count if w == 1 else None,
             num_global_experts=self.num_global_experts,
             routed=top_k * n_valid if w == 1 else None, training=training,
-            adaptive_degree=max(self.adaptive_degree, 1),
+            adaptive_degree=max(r, 1),
             sharded_count=self.sharded_count)
         if ragged_max_recv:
             from ..ops import ragged_ep
-            hier = None
-            if self._flat_2dh():
-                hier = (self._hmesh.group("dcn"), self._hmesh.group("ici"))
             out = ragged_ep.ragged_ep_forward(
-                x2, crit, params["experts"], self.experts.apply_grouped,
+                x2, crit, expert_params, self.experts.apply_grouped,
                 self.world_group, ragged_max_recv,
-                is_postscore=self.is_postscore, ctx=ctx, hier=hier)
+                is_postscore=self.is_postscore, ctx=ctx, hier=self._hier())
         # one device, every token at every expert, nothing dropped: a
         # broadcast and a weighted sum take the place of the slot gathers
         elif w == 1 and top_k == self.num_global_experts \
-                and capacity >= samples and megablocks_size == 0:
+                and capacity >= x2.shape[0] and megablocks_size == 0:
             y = dispatch_ops.dense_encode(x2, crit, self.is_postscore)
-            y = self._apply_experts(params["experts"], y, ctx)
+            y = self._apply_experts(expert_params, y, ctx)
             out = dispatch_ops.dense_decode(y, crit, self.is_postscore)
         else:
             y = dispatch_ops.fast_encode(x2, crit, self.is_postscore)
-            y = self._experts_body(params["experts"], y, ctx)
+            y = self._experts_body(expert_params, y, ctx, r)
             out = dispatch_ops.fast_decode(y, crit, self.is_postscore)
         if w > 1:
             l_aux = net.simple_all_reduce(l_aux, self.world_group) / w
-        out = out.reshape(*original_shape[:-reserve_dims],
-                          *reserve_shape[:-1], -1)
         return out, l_aux
+
+    def _hier(self):
+        """The (outer, inner) groups of the two-level exchange, or None."""
+        if self._flat_2dh():
+            return (self._hmesh.group("dcn"), self._hmesh.group("ici"))
+        return None
+
+    def _ec_body(self, gate_params, expert_params, x2, gate_index, capacity,
+                 r, training, noise, token_mask):
+        """The expert-choice flow (:972-1094): one rank routes, gathers,
+        runs the experts and combines; over a world every rank all-gathers
+        the [s, E] scores (and mask), takes the replicated top-C, and moves
+        only the selected rows through the ragged exchange (expert slicing:
+        the `sharded_count` ranks of an expert all receive them, and their
+        partial or duplicate outputs sum on the token's owner). adaptive_r
+        == 0 gathers the weights instead and computes the slots of this
+        rank's own tokens: no activation crosses the wire. l_aux is the
+        router z-loss over the valid tokens of the world."""
+        from ..ops import expert_choice as ec_ops
+        gate = self.gates[gate_index]
+        e_global, w, sc = self.num_global_experts, self.world_size, \
+            self.sharded_count
+        logits = gate.apply(gate_params, x2)
+        if noise is not None:
+            logits = logits + gate.gate_noise * noise.to(logits.dtype) \
+                / e_global
+        scores = torch.softmax(logits, dim=1)
+        e_local = e_global * sc // w if w > 1 else e_global
+        ctx = SimpleNamespace(
+            megablocks_size=0, num_global_experts=e_global,
+            dispatch_count=torch.full((e_local,), capacity, dtype=torch.int32,
+                                      device=x2.device),
+            routed=None, training=training, adaptive_degree=max(r, 1),
+            sharded_count=sc)
+        if w == 1:
+            ec = ec_ops.expert_choice_routing(scores, capacity, token_mask)
+            y = ec_ops.ec_encode(x2, ec, self.is_postscore)
+            y = self._apply_experts(expert_params, y, ctx)
+            return (ec_ops.ec_decode(y, ec, x2.shape[0], self.is_postscore),
+                    ec_ops.router_z_loss(logits, token_mask))
+
+        expert_params = self._local_quant_view(expert_params)
+        s, idx, group = x2.shape[0], self.rank_index, self.world_group
+        mask_g = None
+        if token_mask is not None:
+            mask_g = net.simple_all_gather(token_mask.to(torch.int32),
+                                           group).bool()
+        ec = ec_ops.expert_choice_routing(
+            net.simple_all_gather(scores, group), capacity, mask_g)
+        if r == 0:
+            # the weights gathered here: each rank computes the slots its
+            # own tokens won; foreign slots take the zero pad row (id s)
+            # with gate 0, and the combine drops them
+            mine = (ec.indices // s) == idx
+            loc = ec_ops.ECRouting(
+                indices=torch.where(mine, ec.indices - idx * s,
+                                    torch.full_like(ec.indices, s)),
+                gates=torch.where(mine, ec.gates,
+                                  torch.zeros_like(ec.gates)),
+                capacity=ec.capacity)
+            ctx.dispatch_count = torch.full((e_global,), capacity,
+                                            dtype=torch.int32,
+                                            device=x2.device)
+            y = ec_ops.ec_encode(
+                torch.cat([x2, x2.new_zeros((1, x2.shape[1]))]), loc,
+                self.is_postscore)
+            y = self._apply_experts(
+                self._gather_expert_params(expert_params, 0), y, ctx)
+            out = ec_ops.ec_decode(y, loc, s, self.is_postscore)
+        else:
+            plan = ec_ops.ec_ep_plan(ec.indices, idx, s, w, replicas=sc)
+            row = idx // sc
+            gates_local = ec.gates[row * e_local:(row + 1) * e_local]
+            y = ec_ops.ec_ep_dispatch(x2, plan, group, e_local, ec.capacity,
+                                      hier=self._hier())
+            if not self.is_postscore:
+                y = y * gates_local[..., None].to(y.dtype)
+            eff = expert_params
+            if sc > 1:
+                eff = self._gather_expert_params(expert_params, r)
+            y = self._apply_experts(eff, y, ctx)
+            if self.is_postscore:
+                y = y * gates_local[..., None].to(y.dtype)
+            else:
+                # dead slots (gate 0) must not send an expert's bias rows
+                # to their tokens
+                y = y * (gates_local[..., None] != 0).to(y.dtype)
+            dup = sc // r
+            if dup > 1:                   # g-fold duplicates count once
+                y = y / dup
+            out = ec_ops.ec_ep_combine(y, plan, s, group, hier=self._hier())
+        zsum, zcnt = ec_ops.router_z_loss_parts(logits, token_mask)
+        zsum = net.simple_all_reduce(zsum, group)
+        zcnt = net.simple_all_reduce(zcnt.detach(), group)
+        return out, zsum / torch.clamp(zcnt, min=1)
 
     def _apply_experts(self, expert_params, y, ctx):
         if self.remat_experts:
@@ -564,11 +728,11 @@ class MOELayer:
                 use_reentrant=False)
         return self.experts.apply(expert_params, y, ctx)
 
-    def _experts_body(self, expert_params, y, ctx):
+    def _experts_body(self, expert_params, y, ctx, r):
         """The dispatched [E, C, M] buffer through the experts: here (one
         rank), after gathering the weights (r == 0), or across the world's
         exchange (:1126-1174)."""
-        w, r = self.world_size, self.adaptive_degree
+        w = self.world_size
         if w == 1:
             return self._apply_experts(expert_params, y, ctx)
         expert_params = self._local_quant_view(expert_params)
@@ -738,6 +902,113 @@ class MOELayer:
                 params["gates"][gate_index], x2, gate_index, tk,
                 self._noise(gate_index, x2.shape[0], training, key,
                             x2.device), token_mask)
+        return fn
+
+    # -- composing under an outer schedule ----------------------------
+
+    def param_specs(self, params):
+        """Where `shard_params` puts each parameter, as a tree shaped like
+        `params` (:670-710): a tensor's leaf is a tuple with one entry per
+        dim (trailing dims may be left out): None where the dim is whole,
+        else the mesh axis, or the tuple of axes in mesh order, that the
+        dim is split over ('e', 'r', 'g' of the layer's mesh, or 'dcn',
+        'ici' under the two-level exchange); a `QuantizedWeight` gives
+        such tuples for its values and its scales (a size-1 scale dim
+        stays whole), a `FusedFFNStream` for its stream and scales
+        (expert dim only). Gates are whole. One rank: everything whole.
+        Hand the expert entries to a pipeline as `stage_param_specs` on a
+        mesh that holds these axes."""
+        def whole(v):
+            if isinstance(v, FusedFFNStream):
+                return dataclasses.replace(v, wstream=(), sb=())
+            if isinstance(v, QuantizedWeight):
+                return dataclasses.replace(v, values=(), scales=())
+            if isinstance(v, dict):
+                return {k: whole(u) for k, u in v.items()}
+            if isinstance(v, (list, tuple)):
+                return type(v)(whole(u) for u in v)
+            return ()
+        if self.world_size == 1:
+            return whole(params)
+        ep_axes = ("dcn", "ici") if self._flat_2dh() else \
+            mesh_lib.MoeMesh.EP_AXES
+        sc = self.sharded_count
+
+        def spec(name, ndim):
+            e_dim, s_dim = SHARD_AXES.get(name, (0, None))
+            out = [None] * ndim
+            if sc == 1:
+                out[e_dim] = ep_axes
+            else:
+                out[e_dim] = "e"
+                if s_dim is not None:
+                    out[s_dim] = ("r", "g")
+            return tuple(out)
+
+        experts = {}
+        for name, v in params["experts"].items():
+            if isinstance(v, FusedFFNStream):
+                if sc > 1:
+                    raise ValueError(
+                        "fused weight streams don't support expert-slicing "
+                        "TP")
+                experts[name] = dataclasses.replace(
+                    v, wstream=(ep_axes,), sb=(ep_axes,))
+                continue
+            self._check_quant_sliceable(name, v,
+                                        SHARD_AXES.get(name, (0, None))[1])
+            if isinstance(v, QuantizedWeight):
+                vs = spec(name, v.values.ndim)
+                experts[name] = dataclasses.replace(
+                    v, values=vs, scales=tuple(
+                        a if v.scales.shape[i] != 1 else None
+                        for i, a in enumerate(vs[:v.scales.ndim])))
+            else:
+                experts[name] = spec(name, v.ndim)
+        return {**whole(params), "experts": experts}
+
+    def local_forward(self, gate_index=0, capacity_factor=None, top_k=None,
+                      adaptive_r=None, training=False,
+                      capacity_override=None):
+        """The per-rank body, for composing the layer under an outer
+        schedule such as a pipeline stage (:712-780). Returns
+        fn(params_local, x_local, key=None) -> (out_local, l_aux): this
+        rank's shard of the parameters (`shard_params`) and its rows
+        [s, M] in, its rows out, as `__call__` with a capacity fixed by
+        `capacity_factor` > 0 or `capacity_override` (an expert-choice
+        gate's over the world's pool of s * W tokens). There is no
+        dropless probe and no host sync of a capacity; adaptive_r (None:
+        the layer's) holds for fn's calls only. As in JAX, the gradient of
+        a replicated leaf (the gates) is this rank's part: the outer
+        schedule sums it over the ranks that replicate it (the pipelines
+        do, from `param_specs`)."""
+        gate = self.gates[gate_index]
+        tk = min(int(top_k or gate.top_k), self.num_global_experts)
+        cf = capacity_factor if capacity_factor is not None \
+            else gate.capacity_factor
+        r = adaptive_r if adaptive_r is not None else self.adaptive_degree
+        if r not in self.valid_rs:
+            raise ValueError(f"adaptive_r={r} not within valid candidates "
+                             f"{self.valid_rs}")
+        if capacity_override is None and not cf > 0:
+            raise ValueError(
+                "expert-choice needs capacity_factor > 0"
+                if self._is_ec(gate_index) else
+                "local_forward needs a static capacity: pass "
+                "capacity_factor > 0 or capacity_override")
+        deg = self.a2a_ffn_overlap_degree
+
+        def fn(params, x_local, key=None):
+            x2 = x_local.to(self.dtype)
+            samples = x2.shape[0]
+            capacity = self._fixed_capacity(gate_index, samples, tk, cf,
+                                            capacity_override, 0, deg)
+            noise = self._noise(gate_index, samples, training, key,
+                                x2.device)
+            return self._forward(
+                params["gates"][gate_index], params["experts"], x2,
+                gate_index, tk, capacity, r, training, noise, None, samples,
+                0, 0)
         return fn
 
     # -- checkpoint format ---------------------------------------------

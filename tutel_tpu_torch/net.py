@@ -209,6 +209,49 @@ def allreduce_backward(x, group=None):
     return _AllReduce.apply(x, group, "backward")
 
 
+def _shift(x, shift, group):
+    """Rank i of `group` sends x to rank (i + shift) % n and receives the
+    tensor of rank (i - shift) % n; every rank posts its send and its
+    receive in one batch."""
+    n, me = get_world_size(group), get_world_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dst, src = (me + shift) % n, (me - shift) % n
+    if group is not None:
+        dst = dist.get_global_rank(group, dst)
+        src = dist.get_global_rank(group, src)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, dst, group),
+            dist.P2POp(dist.irecv, out, src, group)]):
+        req.wait()
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """`ppermute`; its backward is the same hop reversed."""
+
+    @staticmethod
+    def forward(ctx, x, shift, group):
+        ctx.shift, ctx.group = shift, group
+        return _shift(x, shift, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, -ctx.shift, ctx.group), None, None
+
+
+def ppermute(x, shift=1, group=None):
+    """The cyclic shift of a tensor over the ranks of `group` (JAX's
+    `lax.ppermute` with the perm [(i, (i + shift) % n)]): rank i sends x to
+    rank (i + shift) % n and returns what rank (i - shift) % n sent, a
+    tensor of x's shape and dtype. Differentiable; on one rank (or a shift
+    of a multiple of n) the identity, with no collective."""
+    n = get_world_size(group)
+    if n == 1 or shift % n == 0:
+        return x
+    return _Shift.apply(x, shift, group)
+
+
 # ---------------------------------------------------------------------------
 # Dim-to-dim all-to-all: scatter output_dim, gather input_dim
 # ---------------------------------------------------------------------------
@@ -435,21 +478,26 @@ def _as_list(tensors):
     return single, ([tensors] if single else list(tensors))
 
 
-def batch_all_to_all_v(tensors, send_counts, group=None, output_size=None):
+def batch_all_to_all_v(tensors, send_counts, group=None, output_size=None,
+                       recv_counts=None):
     """Exchange variable-length row blocks of one or more tensors.
 
     tensors: one tensor or a list of [N, ...] tensors sharing one row
     partitioning: rows sum(send_counts[:d]) : sum(send_counts[:d+1]) go to
     rank d. send_counts: [W] integer tensor. output_size: rows of the
-    receive buffer (default N; rows past it are dropped).
+    receive buffer (default N; rows past it are dropped). recv_counts: the
+    [W] rows each rank sends here, where the caller knows them (else they
+    are exchanged first).
     Returns (received, recv_counts [W] int32): the rows from rank p land
     contiguously in source order, zeros after sum(recv_counts). The counts
     are read on the host (one sync).
     """
     single, tensors = _as_list(tensors)
     send_counts = send_counts.reshape(-1).to(torch.int64)
-    recv_counts = simple_all_to_all(send_counts.reshape(-1, 1),
-                                    group).reshape(-1)
+    if recv_counts is None:
+        recv_counts = simple_all_to_all(send_counts.reshape(-1, 1),
+                                        group).reshape(-1)
+    recv_counts = recv_counts.reshape(-1).to(torch.int64)
     send, recv = send_counts.tolist(), recv_counts.tolist()
     outs = [_AllToAllV.apply(t, send, recv, output_size or t.shape[0], group)
             for t in tensors]

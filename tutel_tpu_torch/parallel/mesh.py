@@ -17,7 +17,11 @@ row-major in consecutive order:
 every line's group, in the same order, when a mesh is built; groups are
 cached by their ranks and reused by every later mesh (a per-call
 `adaptive_r` switch creates none). A line holding every rank of the world
-uses the default group.
+uses the default group. A mesh over some of the world's ranks (the MoE
+layer of one pipeline stage, over the 'e' line of a ('pp', 'e') mesh) is
+built by its own ranks only: it takes the groups an earlier mesh made and
+makes the others among its members (torch's local synchronization), so
+the ranks of other stages need not take part.
 """
 
 import dataclasses
@@ -43,14 +47,16 @@ def this_rank():
         else 0
 
 
-def _line_group(ranks):
-    """The process group over `ranks` (sorted global ranks), made once."""
+def _line_group(ranks, local=False):
+    """The process group over `ranks` (sorted global ranks), made once;
+    local: made by its members only."""
     world = dist.group.WORLD
     if len(ranks) == dist.get_world_size():
         return world
     key = (world, ranks)
     if key not in _GROUPS:
-        _GROUPS[key] = dist.new_group(list(ranks))
+        _GROUPS[key] = dist.new_group(list(ranks),
+                                      use_local_synchronization=local)
     return _GROUPS[key]
 
 
@@ -64,8 +70,11 @@ class ProcessMesh:
         if int(np.prod(self.shape)) != len(self.ranks):
             raise ValueError(f"mesh {dict(zip(self.names, self.shape))} "
                              f"!= {len(self.ranks)} ranks")
-        grid = np.asarray(self.ranks).reshape(self.shape)
+        self._grid = grid = np.asarray(self.ranks).reshape(self.shape)
         me = this_rank()
+        # a mesh over part of the world makes only its own lines' groups
+        part = dist.is_initialized() and \
+            len(self.ranks) < dist.get_world_size()
         self._groups = {}
         # every line of every axis and of the whole mesh, in one order on
         # every rank
@@ -78,7 +87,11 @@ class ProcessMesh:
                                                     for d in dims])), -1)
             for col in range(lines.shape[1]):
                 line = tuple(sorted(int(r) for r in lines[:, col]))
-                group = _line_group(line)
+                if part and me not in line:
+                    continue
+                # without a process group the world is this one rank
+                group = _line_group(line, local=part) \
+                    if dist.is_initialized() else None
                 if me in line:
                     self._groups[axes] = group
 
@@ -89,6 +102,35 @@ class ProcessMesh:
         """Ranks along `axes`."""
         return int(np.prod([self.shape[self.names.index(a)]
                             for a in self._axes(axes)]))
+
+    def index(self, axes):
+        """This rank's flat index along `axes` (row-major in their given
+        order): the shard of a dim split over them that it holds."""
+        coord = np.argwhere(self._grid == this_rank())[0]
+        out = 0
+        for a in self._axes(axes):
+            d = self.names.index(a)
+            out = out * self.shape[d] + int(coord[d])
+        return out
+
+    def shard(self, value, spec):
+        """This rank's part of `value` under `spec`: one entry a dim (None:
+        whole; an axis name or a tuple of them: split over those axes, this
+        rank's slice `index(axes)`); trailing dims left out are whole. A
+        dataclass value (`QuantizedWeight`, `FusedFFNStream`) takes a spec
+        of its own type and splits each tensor field by its entry."""
+        if dataclasses.is_dataclass(value) and not isinstance(value, type):
+            return dataclasses.replace(value, **{
+                f.name: self.shard(getattr(value, f.name),
+                                   getattr(spec, f.name))
+                for f in dataclasses.fields(value)
+                if hasattr(getattr(value, f.name), "shape")})
+        from ..convert import take_shard
+        for dim, axes in enumerate(spec or ()):
+            if axes is not None:
+                value = take_shard(value, dim, self.size(axes),
+                                   self.index(axes))
+        return value
 
     def group(self, axes):
         """The process group of this rank's line along `axes`."""

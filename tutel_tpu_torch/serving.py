@@ -15,7 +15,10 @@ embedding vectors:
     whose routing overflowed the speculated buffer is replayed from its
     pre-chunk buffer at the observed capacity, so every fetched chunk is
     dropless. speculative_capacity=0 runs the content-independent worst
-    case (capacity = the bucketed active count).
+    case (capacity = the bucketed active count). An expert-choice gate
+    turns speculation off (:143-146); its chunks pass the worst case as
+    `capacity_override`, which the EC rule takes as C, so each expert
+    takes every valid token, as in the JAX engine.
   * `state_update`: "replace" (state' = moe(state)) or "residual_norm"
     (state' = rmsnorm(state + moe(state)), which keeps untrained states
     from collapsing to zero and the routing load realistic).
@@ -38,7 +41,9 @@ end, so every rank holds the same states and makes the same admissions.
 cache; admissions prefill their prompts (grouped by padded length) and
 join; chunks of decode steps run over every slot, with greedy or sampled
 token selection and optional speculative MoE capacity with replay (off
-over several ranks, as in the JAX engine: :640-650). Each
+over several ranks and for expert-choice gates, as in the JAX engine:
+:640-650; an EC decode step then runs at C = capacity_factor * S / E).
+Each
 decode step runs kernels K6 and K8, each prefill chunk K7, and the INT4
 MoE blocks K2 (K4 for SwiGLU `llama_ffn` experts, whose stream
 `auto_fuse` attaches the same way). The caches are updated in place.
@@ -115,6 +120,11 @@ class MoeDecodeEngine:
         self.stats = {"steps": 0, "tokens": 0, "joined": 0, "finished": 0,
                       "spec_retries": 0}
         self.speculative_capacity = float(speculative_capacity or 0)
+        # an expert-choice gate's capacity is exact by construction; every
+        # chunk passes capacity_override = the worst case, which the EC
+        # rule takes as C: each expert takes every valid token (as in JAX)
+        if getattr(layer.gates[0], "expert_choice", False):
+            self.speculative_capacity = 0.0
         # observed-need hints are shared by the engines driving one layer:
         # a later engine starts from the capacity a retry discovered
         hints = getattr(layer, "_serving_spec_hints", None)
@@ -444,7 +454,9 @@ class LmDecodeEngine:
         self.capacity_bucket = max(int(capacity_bucket), 1)
         self.speculative_capacity = float(speculative_capacity or 0)
         if not model.moe_layers or any(
-                lay.world_size > 1 for lay in model.moe_layers.values()):
+                lay.world_size > 1 or getattr(lay.gates[0], "expert_choice",
+                                              False)
+                for lay in model.moe_layers.values()):
             self.speculative_capacity = 0.0
         # observed needs are shared by the engines of one model: a hint
         # only raises the speculated capacity
