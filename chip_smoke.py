@@ -161,7 +161,8 @@ In order, it
      destroys the group;
  13. prints one JSON line per check and phase, the {"kernels": [...]} line
      (all ten kernels; the launches of step 12's and step 14's path runs
-     added, not those of their kernel checks), and last
+     added, not those of their kernel checks; step 15 launches none), and
+     last
      {"ok": true, "device": {...}};
  14. runs slice 6a under the same world-1 group, after step 12's phases
      and before the group is destroyed: the decode server's INT4 layer
@@ -194,12 +195,49 @@ In order, it
      trained with its microbatches in sequence, ms a step and peak
      memory, 1F1B's loss and gradients within 1e-5 of GPipe's, and a
      stage whose body is local_forward of a top-2 and of an EC layer
-     against the sequential run (pipeline_world1).
+     against the sequential run (pipeline_world1);
+ 15. runs slices 6b and 6c (no ported kernel on their paths; each phase
+     checks that none of K1-K10 launched) under the same world-1 group,
+     after step 14's phases and before the group is destroyed, with the
+     CPU references computed before the group exists:
+     benchmarks/bench_lm_train.py's model (step 10's lm_train, bf16, 32 x
+     512 tokens): apply_seqpar at one rank equal to apply bit for bit, the
+     per-rank sequence-parallel body forced at P = 1 in both attention
+     modes (Ulysses and ring) against apply / loss (Ulysses' logits equal
+     to apply's bit for bit; the ring's each token's logits within 2e-2 of
+     max |logit|, up to 3% of the tokens past it by bf16 routing flips,
+     and each position's median token over the batch within 1e-2, which
+     a planted leak of one future key into the last 16 of the 512
+     positions must fail; the nll within 1e-3;
+     one backward per leaf in float32 with every token at every expert,
+     where no top-k choice can flip: the difference's norm within 2e-3 of
+     the leaf's, its largest entry within 2e-2 of the leaf's max), ms a
+     forward + backward step (median of 5) and peak memory of each mode
+     beside loss's (seqpar_world1); the ring's per-step function over 4
+     blocks of one sequence of 512 in each rank's ring order, against
+     full causal attention at that width (16 heads of 128, and 4 KV
+     heads), float32 within 1e-5 and bf16 within 2e-2, forward and the
+     gradients of q, k and v (ring_blocks); examples/seqpar_lm.py at its
+     defaults, Ulysses and ring with 4 KV heads, losses within 1e-4 of
+     the CPU's (seqpar_example); VisionMoE at VisionMoEConfig's defaults
+     (32 x 32 x 3 images, patch 4, model_dim 64, 4 layers, MoE in 2 with
+     4 experts of 128, top-2, float32) on 256 images for 20 Adam(1e-2)
+     steps: finite, falling losses, the first 5 against the CPU's, ms a
+     step, peak memory, and its MoE state through scatter_state(., 2) and
+     gather_states back into the model bit for bit (vision_train); the
+     host library built by g++ against ops/dispatch and ops/routing on
+     the card (float32 within 1e-5, locations exact), then
+     examples/moe_transformer_lm.py at its defaults (8 x 128 tokens,
+     model_dim 128, 4 layers, 4 experts, top-2, 100 AdamW steps):
+     falling losses, the first 10 against the CPU's, tokens/s
+     (native_lm). Each example's and trainer's losses are held to the
+     CPU's within 1e-4.
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -220,6 +258,8 @@ from tutel_tpu_torch.csrc import build  # noqa: E402
 from tutel_tpu_torch.examples import helloworld  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoE  # noqa: E402
 from tutel_tpu_torch.models import TransformerMoEConfig  # noqa: E402
+from tutel_tpu_torch.models import VisionMoE, VisionMoEConfig  # noqa: E402
+from tutel_tpu_torch.models import transformer  # noqa: E402
 from tutel_tpu_torch.ops import activations, fused_ffn, quant, w8a8  # noqa: E402
 from tutel_tpu_torch.ops import decode_attn as da  # noqa: E402
 from tutel_tpu_torch.ops import grouped_gemm_quant as gq  # noqa: E402
@@ -2741,11 +2781,471 @@ def slice6a_phases(smi, env, ec_cpu_losses):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Slices 6b and 6c (step 15): sequence parallelism, the vision model and
+# the host library; no ported kernel lies on these paths
+# ---------------------------------------------------------------------------
+
+SP_TOL = 2e-2           # the ring body's bf16 logits: per token, of max |logit|
+# the ring's share of tokens allowed past SP_TOL: its float32 online softmax
+# rounds apply's bf16 attention differently, which can flip a top-2 choice
+# at a near-tie and move that token (and, through later blocks' attention,
+# a little of the tokens after it); 1.7% on an H100. Such flips fall on
+# tokens at random, so each position's median token over the batch must
+# stay within SP_POS_TOL: on an H100 the ring's largest is 5.7e-3 of max
+# |logit|. SP_FAULT_TAIL: a planted fault, one future key leaked into the
+# last positions of the sequence, that the check must see (on an H100 it
+# raises the largest median to 1.6e-2, and moves too few tokens past
+# SP_TOL, 2.2%, to exceed the share)
+SP_FLIP_SHARE, SP_POS_TOL, SP_FAULT_TAIL = 0.03, 1e-2, 16
+SP_NLL_TOL = 1e-3       # the SP body's nll against loss's, bf16
+# the gradients, per leaf, compared in float32 with every token at every
+# expert (top_k = E), where no top-k choice can flip: the norm of the
+# difference within SP_GRAD_TOL of the leaf's norm, and its largest entry
+# within SP_GRAD_MAX_TOL of the leaf's max |ref|. A rounding difference
+# still moves an expert's relu input across 0 for a few of the 268 million
+# (token, hidden unit) pairs a layer; each such token's changed cotangent
+# reaches every leaf before it (on an H100: 3e-5 to 1.2e-4 of a leaf's
+# norm, 6.4e-4 for the experts' fc1, their largest entry 4.2e-3 of the
+# max), while a fault in the attention's backward moves every leaf by far
+# more
+SP_GRAD_TOL, SP_GRAD_MAX_TOL = 2e-3, 2e-2
+EXAMPLE_TOL = 1e-4      # an example's losses, card against the CPU
+SP_MODES = ("ulysses", "ring")
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted names of a tree's tensors, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def grads_of(loss_fn, params):
+    """(loss, the gradients in tree_leaves order) of loss_fn(params)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss = loss_fn(tree_replace(params, leaves))
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def step_ms(fn, reps=5):
+    """Median host ms of `reps` synchronized calls after one warm-up, and
+    the peak memory of those calls in GB."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 1e9
+
+
+def seqpar_world1(smi, env):
+    """The LM-train model (bench_lm_train.py's, bf16, 32 x 512 tokens) under
+    the world-1 group: apply_seqpar at one rank equals apply bit for bit;
+    the per-rank SP body (`_seqpar_local`, `_loss_seqpar_local`) forced at
+    P = 1 in both attention modes against apply / loss (Ulysses' logits
+    bit for bit, the ring's bf16 logits per token and per position, and a
+    planted tail fault that the ring's check must see; the nll; one
+    backward per leaf in float32 with every token at every expert); ms a
+    forward + backward step (median of 5) and peak memory of each mode
+    beside loss's (bf16, top-2)."""
+    cfg = TransformerMoEConfig(**LM_TRAIN_CONFIG, dtype=torch.bfloat16)
+    model = TransformerMoE(cfg, group=env, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    b, t = LM_TRAIN_BATCH
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (b, t))).to("cuda")
+    out = {"phase": "seqpar_world1", "world_size": env.global_size,
+           "backend": env.backend,
+           "config": {**LM_TRAIN_CONFIG, "batch": b, "seq": t,
+                      "dtype": "bfloat16"},
+           "tol": {"logits": SP_TOL, "flip_share": SP_FLIP_SHARE,
+                   "position_median": SP_POS_TOL,
+                   "nll": SP_NLL_TOL, "grads_float32_dense_norm":
+                   SP_GRAD_TOL, "grads_float32_dense_max": SP_GRAD_MAX_TOL}}
+    reset_launches()
+    with torch.no_grad():
+        ref, _ = model.apply(params, tokens)
+        fallback, _ = model.apply_seqpar(params, tokens)
+        if not torch.equal(fallback, ref):
+            raise RuntimeError("apply_seqpar at one rank is not apply")
+        del fallback
+        scale = float(ref.float().abs().max())
+
+        def logits_check(mode):
+            got, _ = model._seqpar_local(params, tokens, attn_mode=mode)
+            err = (got.float() - ref.float()).abs().amax(dim=-1) / scale
+            past = int((err > SP_TOL).sum())
+            pos = err.median(dim=0).values
+            return {"bit_exact": torch.equal(got, ref),
+                    "max_token_err": float(err.max()),
+                    "tokens_past_tol": past,
+                    "max_position_median_err": float(pos.max()),
+                    "within": past <= SP_FLIP_SHARE * tokens.numel()
+                    and float(pos.max()) <= SP_POS_TOL}
+
+        _, (nll_ref, _) = model.loss(params, tokens)
+        for mode in SP_MODES:
+            out[mode] = logits_check(mode)
+            _, (nll, _) = model._loss_seqpar_local(params, tokens,
+                                                   attn_mode=mode)
+            out[mode].update(nll=float(nll), nll_ref=float(nll_ref),
+                             nll_err=abs(float(nll) - float(nll_ref)))
+            if not out[mode]["bit_exact" if mode == "ulysses" else
+                             "within"] or out[mode]["nll_err"] > SP_NLL_TOL:
+                raise RuntimeError(f"seqpar_world1 {mode}: {out[mode]}")
+        step = transformer.ring_attention_step
+        tail = tokens.shape[1] - SP_FAULT_TAIL
+
+        def leaky_step(q, k, v, q_pos, k_pos, *state):
+            return step(q, k, v, q_pos + (q_pos >= tail).long(), k_pos,
+                        *state)
+
+        transformer.ring_attention_step = leaky_step
+        try:
+            out["ring_tail_fault"] = {"positions": SP_FAULT_TAIL,
+                                      **logits_check("ring")}
+        finally:
+            transformer.ring_attention_step = step
+        if out["ring_tail_fault"]["within"]:
+            raise RuntimeError(f"seqpar_world1: the ring's check misses a "
+                               f"planted tail fault: {out}")
+    del ref
+    torch.cuda.empty_cache()
+    model32 = TransformerMoE(TransformerMoEConfig(**LM_TRAIN_CONFIG),
+                             group=env, device="cuda")
+    params32 = tree_replace(params, [p.float() for p in tree_leaves(params)])
+    dense = {"top_k": cfg.num_local_experts}
+    names = leaf_names(params32)
+    _, ref_grads = grads_of(lambda p: model32.loss(
+        p, tokens, moe_overrides=dense)[0], params32)
+    for mode in SP_MODES:
+        _, grads = grads_of(lambda p: model32._loss_seqpar_local(
+            p, tokens, moe_overrides=dense, attn_mode=mode)[0], params32)
+        fro = [float((g - r).norm() / r.norm().clamp_min(1e-30))
+               for g, r in zip(grads, ref_grads)]
+        top = [float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+               for g, r in zip(grads, ref_grads)]
+        out[mode].update(max_leaf_grad_norm_err=max(fro),
+                         max_leaf_grad_max_err=max(top),
+                         worst_leaf=names[int(np.argmax(top))])
+        if not (max(fro) <= SP_GRAD_TOL and max(top) <= SP_GRAD_MAX_TOL):
+            raise RuntimeError(f"seqpar_world1 {mode}: gradient errors "
+                               f"{dict(zip(names, zip(fro, top)))}")
+        del grads
+    del ref_grads, params32
+    torch.cuda.empty_cache()
+    for name, fn in (("loss", lambda p: model.loss(p, tokens)[0]),) + tuple(
+            (mode, lambda p, mode=mode: model._loss_seqpar_local(
+                p, tokens, attn_mode=mode)[0]) for mode in SP_MODES):
+        ms, peak = step_ms(lambda: grads_of(fn, params))
+        out.setdefault(name, {}).update(step_ms=ms, peak_mem_gb=peak)
+        torch.cuda.empty_cache()
+    out["launches"] = read_launches("seqpar_world1", set())
+    out["card"] = smi
+    return out
+
+
+def ring_blocks(q, k, v, p):
+    """models.transformer.ring_attention_step over p blocks of one
+    sequence: block i's queries take the K/V blocks in rank i's ring order
+    (i, i - 1, ...), with no collective. q [B, T, NH, HD], k, v [B, T, KVH,
+    HD] -> [B, T, NH, HD] in q's dtype."""
+    from tutel_tpu_torch.models.transformer import ring_attention_step
+    b, t, nh, hd = q.shape
+    kvh = k.shape[2]
+    mq, tl = nh // kvh, t // p
+    pos = torch.arange(tl, device=q.device)
+    qg = q.reshape(b, t, mq, kvh, hd)
+    outs = []
+    for i in range(p):
+        m = torch.full((b, mq, kvh, tl), float("-inf"), device=q.device)
+        den = torch.zeros((b, mq, kvh, tl), device=q.device)
+        acc = torch.zeros((b, tl, mq, kvh, hd), device=q.device)
+        for j in range(p):
+            src = (i - j) % p
+            m, den, acc = ring_attention_step(
+                qg[:, i * tl:(i + 1) * tl], k[:, src * tl:(src + 1) * tl],
+                v[:, src * tl:(src + 1) * tl], i * tl + pos, src * tl + pos,
+                m, den, acc)
+        outs.append(acc / den.permute(0, 3, 1, 2)[..., None])
+    return torch.cat(outs, dim=1).reshape(b, t, nh, hd).to(q.dtype)
+
+
+def full_causal_attention(q, k, v):
+    """Causal attention over the whole sequence as the model's `_attn`
+    computes it: float32 scores, probabilities in q's dtype."""
+    b, t, nh, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, t, nh // kvh, kvh, hd)
+    scores = torch.einsum("bqmgd,bkgd->bmgqk", qg.float(),
+                          k.float()) * hd ** -0.5
+    mask = torch.tril(torch.ones(t, t, dtype=torch.bool, device=q.device))
+    scores = torch.where(mask, scores, torch.full_like(scores,
+                                                       float("-inf")))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bmgqk,bkgd->bqmgd", probs, v)
+    return out.reshape(b, t, nh, hd)
+
+
+def ring_blocks_check(smi, blocks=4, t=512):
+    """The ring's per-step function over `blocks` blocks of one sequence of
+    t at the LM-train width (16 heads of 128; MHA and 4 KV heads) against
+    full causal attention, forward and the gradients of q, k and v: float32
+    within F32_TOL, bfloat16 within BF16_TOL, of max |ref|."""
+    nh, hd = LM_TRAIN_CONFIG["num_heads"], (LM_TRAIN_CONFIG["model_dim"]
+                                            // LM_TRAIN_CONFIG["num_heads"])
+    out = {"phase": "ring_blocks", "blocks": blocks, "seq": t, "heads": nh,
+           "head_dim": hd}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    reset_launches()
+    for kvh in (nh, 4):
+        base = [torch.randn(1, t, n, hd, generator=g, device="cuda")
+                for n in (nh, kvh, kvh, nh)]
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            q, k, v = (a.to(dtype).requires_grad_(True) for a in base[:3])
+            results = []
+            for fn in (lambda: ring_blocks(q, k, v, blocks),
+                       lambda: full_causal_attention(q, k, v)):
+                y = fn()
+                results.append((y.detach(), torch.autograd.grad(
+                    y.float(), (q, k, v), base[3].to(dtype).float())))
+            (y, gr), (yr, grr) = results
+            errs = [rel_err(y.float(), yr.float())[1]] + [
+                rel_err(a.float(), b.float())[1] for a, b in zip(gr, grr)]
+            key = f"kvh{kvh}_{str(dtype).split('.')[1]}"
+            out[key] = {"forward": errs[0], "grad_q": errs[1],
+                        "grad_k": errs[2], "grad_v": errs[3], "tol": tol,
+                        "finite": all(bool(torch.isfinite(a).all())
+                                      for a in gr)}
+            if not (max(errs) <= tol and out[key]["finite"]):
+                raise RuntimeError(f"ring_blocks {key}: {out[key]}")
+    out["launches"] = read_launches("ring_blocks", set())
+    out["card"] = smi
+    return out
+
+
+SEQPAR_EXAMPLE_ARGV = (("ulysses", []),
+                       ("ring_kv4", ["--attn", "ring", "--num_kv_heads",
+                                     "4"]))
+VISION_BATCH, VISION_STEPS, VISION_CPU_STEPS = 256, 20, 5
+NATIVE_CPU_STEPS = 10
+
+
+def vision_batch():
+    rng = np.random.default_rng(SEED + 90)
+    cfg = VisionMoEConfig()
+    images = rng.standard_normal((VISION_BATCH, cfg.image_size,
+                                  cfg.image_size, cfg.in_channels))
+    labels = rng.integers(0, cfg.num_classes, VISION_BATCH)
+    return (torch.from_numpy(images.astype(np.float32)),
+            torch.from_numpy(labels))
+
+
+def check_losses(name, got, ref):
+    """max |card - CPU| over the CPU's steps; raises past EXAMPLE_TOL."""
+    err = float(np.max(np.abs(np.array(got[:len(ref)]) - np.array(ref))))
+    if not err <= EXAMPLE_TOL:
+        raise RuntimeError(f"{name} on the card: losses {got[:len(ref)]} "
+                           f"against the CPU's {list(ref)}")
+    return err
+
+
+def vision_start():
+    return VisionMoE(VisionMoEConfig(), device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+
+
+def vision_run(device, steps, start=None):
+    """VisionMoE at VisionMoEConfig's defaults on `device`, from one CPU
+    start (default vision_start()): `steps` Adam(1e-2) steps on
+    vision_batch(). (model, params, losses, synchronized ms a step)."""
+    cfg = VisionMoEConfig()
+    model = VisionMoE(cfg, device=device)
+    start = vision_start() if start is None else start
+    leaves = [p.detach().to(device).clone().requires_grad_(True)
+              for p in tree_leaves(start)]
+    params = tree_replace(start, leaves)
+    images, labels = (a.to(device) for a in vision_batch())
+    opt = torch.optim.Adam(leaves, lr=1e-2)
+    losses, times = [], []
+    for _ in range(steps):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss, _ = model.loss(params, images, labels)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+        times.append(1e3 * (time.perf_counter() - t0))
+    return model, params, losses, times
+
+
+def slice6b_cpu_refs():
+    """The CPU losses step 15 holds the card's against, computed before
+    the NCCL group exists: seqpar_lm at its defaults in both runs; the
+    vision trainer's and moe_transformer_lm's first steps."""
+    from tutel_tpu_torch import csrc
+    from tutel_tpu_torch.examples import moe_transformer_lm as mtl
+    from tutel_tpu_torch.examples import seqpar_lm
+    built = csrc.native.library_path().exists()
+    t0 = time.perf_counter()
+    csrc.lib()                          # g++, at its first use here
+    build = {"seconds": time.perf_counter() - t0, "was_built": built}
+    refs = {name: seqpar_lm.run(seqpar_lm.build_args(
+        ["--device", "cpu"] + argv), log=lambda *_: None)
+        for name, argv in SEQPAR_EXAMPLE_ARGV}
+    refs["vision"] = vision_run("cpu", VISION_CPU_STEPS)[2]
+    refs["native_lm"] = mtl.run(mtl.build_args(
+        ["--device", "cpu", "--steps", str(NATIVE_CPU_STEPS)]),
+        log=lambda *_: None)
+    refs["native_build"] = build
+    return refs
+
+
+def seqpar_example(smi, cpu_refs):
+    """examples/seqpar_lm.py at its defaults on the card at one rank
+    (Ulysses, and ring with 4 KV heads): its losses against the CPU's."""
+    from tutel_tpu_torch.examples import seqpar_lm
+    out = {"phase": "seqpar_example", "tol": EXAMPLE_TOL}
+    reset_launches()
+    for name, argv in SEQPAR_EXAMPLE_ARGV:
+        args = seqpar_lm.build_args(["--device", "cuda"] + argv)
+        losses, ms = timed_run(seqpar_lm, args)
+        err = check_losses(f"seqpar_lm {name}", losses, cpu_refs[name])
+        out[name] = {"argv": argv, "losses": losses, "max_abs_diff": err,
+                     "median_step_ms": statistics.median(ms)}
+    out["launches"] = read_launches("seqpar_example", set())
+    out["card"] = smi
+    return out
+
+
+def vision_train(smi, cpu_refs):
+    """VisionMoE at VisionMoEConfig's defaults (32 x 32 x 3 images, patch 4,
+    model_dim 64, 4 heads, 4 layers, MoE in 2 of them with 4 experts of
+    128, top-2, cf 1.25, float32), 256 images, 20 Adam(1e-2) steps:
+    finite, falling losses, the first 5 within EXAMPLE_TOL of the CPU's,
+    ms a step, peak memory; then its MoE state through scatter_state(., 2)
+    and gather_states back into the model, bit for bit."""
+    from tutel_tpu_torch.checkpoint import reshard
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    model, params, losses, times = vision_run("cuda", VISION_STEPS)
+    launches = read_launches("vision_train", set())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"vision_train: losses {losses}")
+    err = check_losses("vision_train", losses, cpu_refs["vision"])
+    state = model.moe_state_dict(params)
+    merged = reshard.gather_states(reshard.scatter_state(state, 2))
+    loaded = model.load_moe_state_dict(model.init(torch.Generator(
+        device="cuda").manual_seed(SEED + 91)), merged)
+    exact = all(np.array_equal(merged[k], state[k]) for k in state) and all(
+        torch.equal(a, b.detach()) for i in model.moe_layers
+        for a, b in zip(tree_leaves(loaded["blocks"][i]["moe"]),
+                        tree_leaves(params["blocks"][i]["moe"])))
+    if not exact:
+        raise RuntimeError("vision_train: the MoE state's 1 -> 2 -> 1 "
+                           "reshard is not bit-exact")
+    return {"phase": "vision_train", "config": dataclasses.asdict(
+        VisionMoEConfig()) | {"dtype": "float32"}, "batch": VISION_BATCH,
+        "steps": VISION_STEPS, "losses": losses, "max_abs_diff_cpu": err,
+        "tol": EXAMPLE_TOL, "cpu_losses": cpu_refs["vision"],
+        "step_ms": times, "median_step_ms": statistics.median(times[1:]),
+        "peak_mem_gb": peak, "reshard_bit_exact": True,
+        "launches": launches, "card": smi}
+
+
+def native_lm(smi, cpu_refs):
+    """The host library (built by g++ at its first use, timed in
+    slice6b_cpu_refs) against ops/dispatch and
+    ops/routing on the card (float32 within F32_TOL, locations exact),
+    then examples/moe_transformer_lm.py at its defaults on the card:
+    falling losses, the first 10 within EXAMPLE_TOL of the CPU's,
+    tokens/s; no ported kernel launches in the phase."""
+    from tutel_tpu_torch import csrc
+    from tutel_tpu_torch.examples import moe_transformer_lm as mtl
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 95)
+    reset_launches()
+    s, e, m, k = 4096, 8, 256, 2
+    scores = torch.softmax(torch.randn(s, e, generator=g, device="cuda"), 1)
+    cap = routing.compute_static_capacity(s, e, k, 1.0)
+    crit, _ = routing.extract_critical(scores, k, cap)
+    x = torch.randn(s, m, generator=g, device="cuda")
+    disp = torch.randn(e, cap, m, generator=g, device="cuda")
+    host = [t.cpu() for t in (crit.gates, crit.indices, crit.locations)]
+    xg = x.clone().requires_grad_(True)
+    gates = crit.gates.clone().requires_grad_(True)
+    dec = dispatch.fast_decode(disp, crit._replace(gates=gates), True)
+    gate_grad, = torch.autograd.grad((dec * x).sum(), gates)
+    errs = {
+        "dispatch_forward": rel_err(csrc.dispatch_forward(
+            *host, x.cpu(), cap, e), dispatch.fast_encode(x, crit, False)
+            .cpu())[1],
+        "dispatch_backward_data": rel_err(csrc.dispatch_backward_data(
+            *host, disp.cpu(), s), dec.detach().cpu())[1],
+        "dispatch_backward_gate": rel_err(csrc.dispatch_backward_gate(
+            host[1], host[2], disp.cpu(), x.cpu()), gate_grad.cpu())[1]}
+    del xg
+    locs, counts = csrc.cumsum_locations(host[1], e)
+    exact = torch.equal(locs.long(), crit.locations.cpu().long()) and \
+        torch.equal(counts.long(), crit.dispatch_count.cpu().long())
+    if not (max(errs.values()) <= F32_TOL and exact):
+        raise RuntimeError(f"native_lm: the host library against the card's "
+                           f"dispatch: {errs}, locations exact {exact}")
+    args = mtl.build_args(["--device", "cuda"])
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    losses = mtl.run(args, log=lines.append)
+    launches = read_launches("native_lm", set())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"moe_transformer_lm: losses {losses}")
+    err = check_losses("moe_transformer_lm", losses, cpu_refs["native_lm"])
+    summary = next(ln for ln in lines if ln.startswith("[Summary]"))
+    return {"phase": "native_lm", "gxx": gxx,
+            "build": cpu_refs["native_build"],
+            "dispatch_rel_err": errs, "locations_exact": True,
+            "shape": {"tokens": s, "experts": e, "model_dim": m, "top_k": k,
+                      "capacity": cap},
+            "losses_first10": losses[:10], "losses_last": losses[-1],
+            "max_abs_diff_cpu": err, "tol": EXAMPLE_TOL,
+            "cpu_losses": cpu_refs["native_lm"],
+            "tokens_per_s": float(re.search(r"~([0-9]+) tokens/s",
+                                            summary).group(1)),
+            "summary": summary, "peak_mem_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "card": smi}
+
+
+def slice6b_phases(smi, env, cpu_refs):
+    """Step 15's phases under the world-1 group, each printing its JSON
+    line."""
+    for phase in (lambda: seqpar_world1(smi, env),
+                  lambda: ring_blocks_check(smi),
+                  lambda: seqpar_example(smi, cpu_refs),
+                  lambda: vision_train(smi, cpu_refs),
+                  lambda: native_lm(smi, cpu_refs)):
+        print(json.dumps(phase()), flush=True)
+        torch.cuda.empty_cache()
+
+
 def ep_phases(smi, plain_losses, bandwidth):
-    """Slice 5a's phases, then slice 5b's, then slice 6a's, in order, each
-    printing its JSON line; the process group is destroyed at the end, so
-    the script can exit. Returns the kernels' launches in slice 5b's and
-    6a's phases."""
+    """Slice 5a's phases, then slice 5b's, 6a's and 6b / 6c's, in order,
+    each printing its JSON line; the process group is destroyed at the
+    end, so the script can exit. Returns the kernels' launches in slice
+    5b's and 6a's phases."""
     print(json.dumps(megablocks_decode(smi)), flush=True)
     torch.cuda.empty_cache()
     cpu_ref = net_calls("cpu")
@@ -2753,6 +3253,7 @@ def ep_phases(smi, plain_losses, bandwidth):
     zero_cpu = zero_run("cpu")
     hec, cpu_args = ec_example_args("cpu", False)
     ec_cpu = hec.run(cpu_args, log=lambda *_: None)
+    sp_cpu = slice6b_cpu_refs()
     env = init_world1()
     try:
         print(json.dumps(net_nccl(cpu_ref, env)), flush=True)
@@ -2761,6 +3262,7 @@ def ep_phases(smi, plain_losses, bandwidth):
         total = slice5b_phases(smi, env, plain_losses, bandwidth, zero_cpu)
         for k, n in slice6a_phases(smi, env, ec_cpu).items():
             total[k] += n
+        slice6b_phases(smi, env, sp_cpu)
         return total
     finally:
         system.destroy()

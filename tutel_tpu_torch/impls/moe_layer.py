@@ -1084,5 +1084,12 @@ class MOELayer:
                           for n, p in params["experts"].items()}
         return out
 
+    def extra_repr(self):
+        return ("Top-K(s) = %s, Total-Experts = %d [managed by %d "
+                "device(s)]," % (
+                    [f"k={x.top_k}, noise={x.gate_noise}"
+                     for x in self.gates],
+                    self.num_global_experts, self.world_size))
+
 
 moe_layer = MOELayer

@@ -29,12 +29,19 @@ all-gathers its output. The gather's backward takes this rank's rows and
 the row split's backward all-gathers, since every rank holds the same
 loss; the l_aux gradient is counted once over the ranks.
 
-Not ported (a later slice): the sequence-parallel forward (`apply_seqpar`,
-`_attn_seqpar`, `_attn_ringpar`, `seqpar_specs`). The JAX model's kernel-mode switches and XLA
-fallback paths (`_attn_kernel_mode`, `_prefill_kernel_mode`,
-TUTEL_TPU_DECODE_ATTN, TUTEL_TPU_PREFILL_ATTN, TUTEL_TPU_SKIP_KV_WRITE,
-the VMEM budget of the batched write) were devices of the TPU compiler and
-are not ported.
+Sequence parallelism (:258-570): `apply_seqpar` / `loss_seqpar` shard
+the sequence over the MoE layers' group (P ranks, T/P positions each);
+attention runs as the Ulysses all-to-all pair (`_attn_seqpar`) or as ring
+attention (`_attn_ringpar`, K/V blocks rotated by `net.ppermute` under an
+online softmax, one `ring_attention_step` a position), and each MoE block
+takes the rank's rows through `MOELayer.local_forward`. The gradients of
+the leaves every rank holds whole are summed over the group, as JAX's
+shard_map transpose sums a replicated input's cotangent.
+
+The JAX model's kernel-mode switches and XLA fallback paths
+(`_attn_kernel_mode`, `_prefill_kernel_mode`, TUTEL_TPU_DECODE_ATTN,
+TUTEL_TPU_PREFILL_ATTN, TUTEL_TPU_SKIP_KV_WRITE, the VMEM budget of the
+batched write) were devices of the TPU compiler and are not ported.
 """
 
 import dataclasses
@@ -47,6 +54,7 @@ from ..impls.moe_layer import MOELayer
 from ..ops.activations import gelu
 from ..ops.decode_attn import decode_attn, prefill_attn, unpack_int4
 from ..ops import kv_write
+from ..parallel import mesh as mesh_lib
 from ..utils import matmul_f32, resolve_device
 
 
@@ -90,19 +98,102 @@ class _TakeRows(torch.autograd.Function):
 
 
 class _GatherRows(torch.autograd.Function):
-    """Every rank's rows, in rank order; the backward keeps this rank's
-    rows of the gradient (every rank computes the same loss from the
-    gathered rows, so its gradient is already the whole one)."""
+    """Every rank's slices of dim `dim`, in rank order; the backward keeps
+    this rank's slice of the gradient (every rank computes the same loss
+    from the gathered tensor, so its gradient is already the whole one)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[0]
-        return net.simple_all_gather(x, group)
+    def forward(ctx, x, group, dim=0):
+        ctx.group, ctx.dim, ctx.rows = group, dim, x.shape[dim]
+        return net.simple_all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         me = net.get_world_rank(ctx.group)
-        return g[me * ctx.rows:(me + 1) * ctx.rows], None
+        return g.narrow(ctx.dim, me * ctx.rows, ctx.rows), None, None
+
+
+def dense_ffn(f, h, dtype):
+    """The dense FFN block: gelu(h @ w1 + b1) @ w2 + b2. Both products stay
+    in float32 through their bias (and the gelu), then round to `dtype`."""
+    hdn = gelu(matmul_f32(h, f["w1"]) + f["b1"].float())
+    o = matmul_f32(hdn.to(dtype), f["w2"]) + f["b2"].float()
+    return o.to(dtype)
+
+
+def layer_keys(moe_layers, key, device):
+    """{MoE block index: its own torch.Generator} for the gate noise,
+    seeded from draws of `key` (the JAX model folds its key with the block
+    index); None gives every layer the default generator."""
+    if key is None:
+        return dict.fromkeys(moe_layers)
+    seeds = torch.randint(0, 2 ** 62, (len(moe_layers),), generator=key,
+                          device=key.device).tolist()
+    return {i: torch.Generator(device=device).manual_seed(sd)
+            for i, sd in zip(moe_layers, seeds)}
+
+
+def _rank_rows(layer, h):
+    """(this rank's rows of h's flattened tokens padded to a multiple of
+    the world size, the token count n, the padded rows a rank)."""
+    w = layer.world_size
+    n = h.numel() // h.shape[-1]
+    flat = h.reshape(n, h.shape[-1])
+    pad = (-n) % w
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, flat.shape[1]))])
+    rows = flat.shape[0] // w
+    return _TakeRows.apply(flat, layer.world_group,
+                           layer.rank_index * rows, rows), n, rows
+
+
+def moe_call(layer, moe_params, h, **overrides):
+    """The MoE layer on activations h [..., d], which every rank holds
+    alike. Over W > 1 ranks the flattened tokens are padded to a multiple
+    of W (a scalar `valid_tokens` masks the padding), the layer gets this
+    rank's rows, and its output rows are all-gathered and trimmed
+    (:190-212)."""
+    w = layer.world_size
+    if w <= 1:
+        return layer(moe_params, h, **overrides)
+    local, n, rows = _rank_rows(layer, h)
+    if rows * w != n and "valid_tokens" not in overrides:
+        overrides = {**overrides, "valid_tokens": n}
+    out, l_aux = layer(moe_params, local, **overrides)
+    out = _GatherRows.apply(out, layer.world_group)[:n].reshape(
+        *h.shape[:-1], out.shape[-1])
+    # every rank adds the same l_aux to the same loss: count its gradient
+    # once over the ranks (the layer's all-reduce sums it)
+    l_aux = l_aux.detach() + (l_aux - l_aux.detach()) / w
+    return out, l_aux
+
+
+def ring_attention_step(q, k_blk, v_blk, q_pos, k_pos, m, den, acc):
+    """One ring position of `_attn_ringpar`'s online softmax, in float32
+    and with no collective: the queries q [B, T/P, mq, kvh, hd] (query
+    head j * kvh + g at [.., j, g, :]) against one K/V block [B, T/P, kvh,
+    hd], causal by the global positions q_pos, k_pos [T/P]. The state is
+    (running max m, denominator den) [B, mq, kvh, T/P] and the unnormalized
+    output acc [B, T/P, mq, kvh, hd]; a row with no visible key yet keeps
+    m = -inf (`safe_m` and `alpha` keep it finite). Returns the new state;
+    the output is acc / den once every block is in (:389-416)."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqmgd,bkgd->bmgqk", q.float(),
+                          k_blk.float()) * scale
+    mask = k_pos[None, :] <= q_pos[:, None]                       # [q, k]
+    scores = torch.where(mask, scores, torch.full_like(scores,
+                                                       float("-inf")))
+    new_m = torch.maximum(m, scores.amax(dim=-1))
+    safe_m = torch.where(torch.isfinite(new_m), new_m,
+                         torch.zeros_like(new_m))
+    p = torch.where(mask, torch.exp(scores - safe_m[..., None]),
+                    torch.zeros_like(scores))
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - safe_m),
+                        torch.zeros_like(m))
+    den = den * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bmgqk,bkgd->bqmgd", p, v_blk.float())
+    acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+    return new_m, den, acc
 
 
 class TransformerMoE:
@@ -222,47 +313,14 @@ class TransformerMoE:
         return y * p["scale"] + p["bias"]
 
     def _ffn(self, f, h):
-        """The dense FFN block: gelu(h @ w1 + b1) @ w2 + b2. Both products
-        stay in float32 through their bias (and the gelu), then round to
-        the model dtype, as in the JAX model."""
-        hdn = gelu(matmul_f32(h, f["w1"]) + f["b1"].float())
-        o = matmul_f32(hdn.to(self.cfg.dtype), f["w2"]) + f["b2"].float()
-        return o.to(self.cfg.dtype)
+        """The dense FFN block (`dense_ffn`) in the model dtype."""
+        return dense_ffn(f, h, self.cfg.dtype)
 
-    @staticmethod
-    def _rank_rows(layer, h):
-        """(this rank's rows of h's flattened tokens padded to a multiple
-        of the world size, the token count n, the padded rows a rank)."""
-        w = layer.world_size
-        n = h.numel() // h.shape[-1]
-        flat = h.reshape(n, h.shape[-1])
-        pad = (-n) % w
-        if pad:
-            flat = torch.cat([flat, flat.new_zeros((pad, flat.shape[1]))])
-        rows = flat.shape[0] // w
-        return _TakeRows.apply(flat, layer.world_group,
-                               layer.rank_index * rows, rows), n, rows
+    _rank_rows = staticmethod(_rank_rows)
 
     def _moe_call(self, i, moe_params, h, **overrides):
-        """MoE layer i on activations h [..., d], which every rank holds
-        alike. Over W > 1 ranks the flattened tokens are padded to a
-        multiple of W (a scalar `valid_tokens` masks the padding), the
-        layer gets this rank's rows, and its output rows are all-gathered
-        and trimmed (:190-212)."""
-        layer = self.moe_layers[i]
-        w = layer.world_size
-        if w <= 1:
-            return layer(moe_params, h, **overrides)
-        local, n, rows = self._rank_rows(layer, h)
-        if rows * w != n and "valid_tokens" not in overrides:
-            overrides = {**overrides, "valid_tokens": n}
-        out, l_aux = layer(moe_params, local, **overrides)
-        out = _GatherRows.apply(out, layer.world_group)[:n].reshape(
-            *h.shape[:-1], out.shape[-1])
-        # every rank adds the same l_aux to the same loss: count its
-        # gradient once over the ranks (the layer's all-reduce sums it)
-        l_aux = l_aux.detach() + (l_aux - l_aux.detach()) / w
-        return out, l_aux
+        """MoE layer i on activations h [..., d] (`moe_call`)."""
+        return moe_call(self.moe_layers[i], moe_params, h, **overrides)
 
     def _probe(self, i, moe_params, h, top_k):
         """The dropless capacity layer i's routing of h needs (a device
@@ -300,15 +358,7 @@ class TransformerMoE:
         return out @ block["wo"]
 
     def _layer_keys(self, key):
-        """{MoE block index: its own torch.Generator} for the gate noise,
-        seeded from draws of `key` (the JAX model folds its key with the
-        block index); None gives every layer the default generator."""
-        if key is None:
-            return dict.fromkeys(self.moe_layers)
-        seeds = torch.randint(0, 2 ** 62, (len(self.moe_layers),),
-                              generator=key, device=key.device).tolist()
-        return {i: torch.Generator(device=self.device).manual_seed(sd)
-                for i, sd in zip(self.moe_layers, seeds)}
+        return layer_keys(self.moe_layers, key, self.device)
 
     def apply(self, params, tokens, key=None, training=False,
               moe_overrides: Optional[dict] = None):
@@ -372,6 +422,277 @@ class TransformerMoE:
         lse = torch.logsumexp(logits.float(), dim=-1)              # [B, T]
         tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
         return lse - tgt.float()
+
+    # ------------------------------------------------------------------
+    # Sequence parallelism (:258-570)
+    # ------------------------------------------------------------------
+
+    def _moe_mesh(self):
+        """(the MoE layers' process group, its size P, this rank's index in
+        it): the sequence shards over the same ranks as the experts."""
+        layers = list(self.moe_layers.values())
+        if not layers:
+            raise ValueError(
+                "apply_seqpar derives its mesh from the MoE layers; "
+                "this model has none (moe_every=0)")
+        l0 = layers[0]
+        for layer in layers[1:]:
+            if layer.world_size != l0.world_size or layer.ranks != l0.ranks:
+                raise ValueError(
+                    "all MoE layers must share one device group for "
+                    "sequence parallelism")
+        return l0.world_group, l0.world_size, l0.rank_index
+
+    def _attn_seqpar(self, block, x, group):
+        """Ulysses attention of this rank's positions x [B, T/P, d]: an
+        all-to-all turns [B, T/P, heads, hd] into [B, T, heads/P, hd] (rank
+        j's positions land at offset j * T/P), full causal attention runs
+        there, and the inverse all-to-all brings the positions back. Under
+        GQA the query heads travel group-major (position g * mq + j holds
+        head j * kvh + g), so each rank gets whole KV groups (:279-341)."""
+        cfg = self.cfg
+        b, tl, d = x.shape
+        nh, hd, kvh = cfg.num_heads, d // cfg.num_heads, self._kvh
+        mq = nh // kvh
+        q, k, v = self._split_qkv(x @ block["wqkv"], (b, tl))
+        if mq > 1:
+            perm = torch.tensor([j * kvh + g for g in range(kvh)
+                                 for j in range(mq)], device=x.device)
+            q = q.index_select(2, perm)
+        # JAX's all_to_all(split_axis=2, concat_axis=1): heads scattered,
+        # positions gathered
+        q, k, v = (net.all_to_all(a, 1, 2, group) for a in (q, k, v))
+        t, gl = q.shape[1], k.shape[2]
+        q = q.reshape(b, t, gl, mq, hd)
+        scores = torch.einsum("bqgmd,bkgd->bgmqk", q.float(), k.float())
+        scores = scores * hd ** -0.5
+        mask = torch.tril(torch.ones(t, t, dtype=torch.bool, device=x.device))
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bgmqk,bkgd->bqgmd", probs, v).reshape(
+            b, t, gl * mq, hd)
+        out = net.all_to_all(out, 2, 1, group)
+        if mq > 1:
+            inv = torch.tensor([(h % kvh) * mq + h // kvh for h in range(nh)],
+                               device=x.device)
+            out = out.index_select(2, inv)
+        return out.reshape(b, tl, d) @ block["wo"]
+
+    def _attn_ringpar(self, block, x, group, sp, idx):
+        """Ring attention of this rank's positions x [B, T/P, d]: the query
+        block stays, the K/V block rotates P - 1 hops over `net.ppermute`
+        (at step j the block in hand came from rank (idx - j) mod P), and
+        `ring_attention_step` folds each block into a float32 online
+        softmax. Each step is checkpointed (recomputed in the backward, as
+        JAX's `jax.checkpoint`), the hops outside it, so no collective runs
+        twice; every rank issues the same hops in the same order
+        (:343-422)."""
+        cfg = self.cfg
+        b, tl, d = x.shape
+        nh, hd, kvh = cfg.num_heads, d // cfg.num_heads, self._kvh
+        mq = nh // kvh
+        q, k, v = self._split_qkv(x @ block["wqkv"], (b, tl))
+        q = q.reshape(b, tl, mq, kvh, hd)
+        pos = torch.arange(tl, device=x.device)
+        q_pos = idx * tl + pos
+        m = torch.full((b, mq, kvh, tl), float("-inf"), device=x.device)
+        den = torch.zeros((b, mq, kvh, tl), device=x.device)
+        acc = torch.zeros((b, tl, mq, kvh, hd), device=x.device)
+        kv = torch.stack([k, v])                 # one hop moves both
+        for j in range(sp):
+            m, den, acc = torch.utils.checkpoint.checkpoint(
+                ring_attention_step, q, kv[0], kv[1], q_pos,
+                ((idx - j) % sp) * tl + pos, m, den, acc,
+                use_reentrant=False)
+            if j < sp - 1:
+                kv = net.ppermute(kv, 1, group)
+        out = acc / den.permute(0, 3, 1, 2)[..., None]
+        return out.to(x.dtype).reshape(b, tl, d) @ block["wo"]
+
+    def _seqpar_axes(self):
+        layer = next(iter(self.moe_layers.values()))
+        return ("dcn", "ici") if layer._flat_2dh() else \
+            mesh_lib.MoeMesh.EP_AXES
+
+    def seqpar_specs(self, params):
+        """(group, token axes, param specs, tokens spec, logits spec) of the
+        sequence-parallel forward (:424-440). The param specs are a tree
+        shaped like `params` in `MOELayer.param_specs`' form: () for a
+        leaf every rank holds whole, the layer's own specs for each
+        block's "moe"; the tokens [B, T] and the logits [B, T, V] are split
+        along T over the token axes."""
+        group, _, _ = self._moe_mesh()
+        axes = self._seqpar_axes()
+
+        def whole(tree):
+            if isinstance(tree, dict):
+                return {k: whole(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(whole(v) for v in tree)
+            return ()
+        blocks = []
+        for i, block in enumerate(params["blocks"]):
+            spec = {k: whole(v) for k, v in block.items() if k != "moe"}
+            if "moe" in block:
+                spec["moe"] = self.moe_layers[i].param_specs(block["moe"])
+            blocks.append(spec)
+        pspec = {"embed": (), "pos": (), "final_ln": whole(params["final_ln"]),
+                 "blocks": blocks}
+        return group, axes, pspec, (None, axes), (None, axes, None)
+
+    def _sum_replicated_grads(self, params):
+        """`params` with each differentiable leaf's gradient summed over
+        the token axes its spec does not split (the identity forward of
+        `net.allreduce_backward`): a whole leaf over the group in one
+        all-reduce, an expert leaf split over every axis not at all."""
+        layer = next(iter(self.moe_layers.values()))
+        mesh = layer._hmesh if layer._flat_2dh() else \
+            layer._meshes[max(layer.adaptive_degree, 1)]
+        _, _, pspec, _, _ = self.seqpar_specs(params)
+
+        def wrap(p, spec):
+            if isinstance(p, dict):
+                return {k: wrap(v, spec[k]) for k, v in p.items()}
+            if isinstance(p, (list, tuple)):
+                return type(p)(wrap(v, s) for v, s in zip(p, spec))
+            if not (isinstance(p, torch.Tensor) and p.requires_grad):
+                return p
+            split = {a for entry in spec if entry is not None
+                     for a in ((entry,) if isinstance(entry, str) else entry)}
+            if not split:
+                return net.allreduce_backward(p, layer.world_group)
+            for a in mesh.names:
+                if a not in split and mesh.size(a) > 1:
+                    p = net.allreduce_backward(p, mesh.group(a))
+            return p
+        return wrap(params, pspec)
+
+    @staticmethod
+    def _check_attn_mode(attn_mode):
+        if attn_mode not in ("ulysses", "ring"):
+            raise ValueError(f"attn_mode={attn_mode!r} "
+                             "(expected 'ulysses' or 'ring')")
+
+    def _seqpar_local(self, params, tokens, key=None, training=False,
+                      moe_overrides: Optional[dict] = None,
+                      attn_mode: str = "ulysses"):
+        """This rank's part of the sequence-parallel forward, at any P (one
+        rank included): the global tokens [B, T] in (every rank holds them
+        all), this rank's logits [B, T/P, V] of positions [idx * T/P,
+        (idx + 1) * T/P) and l_aux_sum, the same on every rank, out.
+        `params` holds this rank's shard of each MoE block
+        (`shard_params`); at P > 1 the replicated leaves' gradients are
+        summed over the group (:482-540)."""
+        cfg = self.cfg
+        self._check_attn_mode(attn_mode)
+        group, sp, idx = self._moe_mesh()
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, t = tokens.shape
+        if t % sp:
+            raise ValueError(
+                f"sequence length {t} must divide the {sp}-device "
+                "SP world")
+        if attn_mode == "ulysses" and self._kvh % sp:
+            raise ValueError(
+                f"num_kv_heads {self._kvh} must divide the {sp}-device "
+                "SP world for attn_mode='ulysses' (its all-to-all "
+                "shards whole KV groups; use 'ring' when P exceeds "
+                "the KV head count)")
+        ov = dict(moe_overrides or {})
+        moe_fns = {i: layer.local_forward(
+            capacity_factor=ov.get("capacity_factor"), top_k=ov.get("top_k"),
+            capacity_override=ov.get("capacity_override"),
+            training=training) for i, layer in self.moe_layers.items()}
+        if sp > 1 and torch.is_grad_enabled():
+            params = self._sum_replicated_grads(params)
+        tl = t // sp
+        x = (params["embed"][tokens[:, idx * tl:(idx + 1) * tl]]
+             + params["pos"][None, idx * tl:(idx + 1) * tl]).to(cfg.dtype)
+        keys = self._layer_keys(key if training else None)
+        l_aux_sum = torch.zeros((), device=self.device)
+        for i, block in enumerate(params["blocks"]):
+            h = self._ln(block["ln1"], x)
+            if attn_mode == "ring":
+                x = x + self._attn_ringpar(block, h, group, sp, idx)
+            else:
+                x = x + self._attn_seqpar(block, h, group)
+            h = self._ln(block["ln2"], x)
+            if i in moe_fns:
+                out, l_aux = moe_fns[i](block["moe"],
+                                        h.reshape(-1, h.shape[-1]), keys[i])
+                x = x + out.reshape(x.shape).to(cfg.dtype)
+                l_aux_sum = l_aux_sum + l_aux.float()
+            else:
+                x = x + self._ffn(block["ffn"], h)
+        logits = self._logits(params, self._ln(params["final_ln"], x))
+        if sp > 1:
+            # the layers' l_aux is already the mean over the group; this
+            # mean (JAX's pmean) leaves it so and hands each rank 1/P of
+            # its gradient, as JAX's transpose does
+            l_aux_sum = net.allreduce_forward(l_aux_sum, group) / sp
+        return logits, l_aux_sum
+
+    def apply_seqpar(self, params, tokens, key=None, training=False,
+                     moe_overrides: Optional[dict] = None,
+                     attn_mode: str = "ulysses"):
+        """Sequence-parallel forward: tokens [B, T] (every rank holds them
+        all), T split over the P ranks of the MoE layers' group -> (logits
+        [B, T, V], all-gathered along T, l_aux_sum). attn_mode "ulysses"
+        needs num_kv_heads % P == 0; "ring" has no head bound. T % P must
+        be 0, and the MoE capacity static (capacity_factor > 0 or
+        capacity_override in `moe_overrides`). At P == 1 this is `apply`.
+        The gather's backward keeps this rank's positions, so a loss every
+        rank computes from the logits alike has the whole gradient."""
+        self._check_attn_mode(attn_mode)
+        group, sp, _ = self._moe_mesh()
+        if sp == 1:
+            return self.apply(params, tokens, key=key, training=training,
+                              moe_overrides=moe_overrides)
+        logits, l_aux = self._seqpar_local(
+            params, tokens, key=key, training=training,
+            moe_overrides=moe_overrides, attn_mode=attn_mode)
+        return _GatherRows.apply(logits, group, 1), l_aux
+
+    def loss_seqpar(self, params, tokens, key=None, training=True,
+                    l_aux_wt=0.01, moe_overrides=None,
+                    attn_mode: str = "ulysses"):
+        """Sequence-parallel `loss`: (loss, (nll, l_aux)), the same on
+        every rank. Tokens up to max_len long run the full sequence (T % P
+        == 0), longer ones (a dataset of max_len + 1) tokens[:, :-1] ((T -
+        1) % P == 0). Each rank sums the nll of its own positions against
+        targets from the global tokens (rank i's last position predicts
+        rank i + 1's first token; the sequence's last position has no
+        target), and one all-reduce of that sum gives the mean over the B
+        * (T - 1) targets, with no [B, T, V] gather (:548-570)."""
+        self._check_attn_mode(attn_mode)
+        if self._moe_mesh()[1] == 1:
+            return self.loss(params, tokens, key=key, training=training,
+                             l_aux_wt=l_aux_wt, moe_overrides=moe_overrides)
+        return self._loss_seqpar_local(
+            params, tokens, key=key, training=training, l_aux_wt=l_aux_wt,
+            moe_overrides=moe_overrides, attn_mode=attn_mode)
+
+    def _loss_seqpar_local(self, params, tokens, key=None, training=True,
+                           l_aux_wt=0.01, moe_overrides=None,
+                           attn_mode: str = "ulysses"):
+        """`loss_seqpar` through the per-rank body at any P (one rank
+        included)."""
+        group, sp, idx = self._moe_mesh()
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, t = tokens.shape
+        inputs = tokens[:, :-1] if t > self.cfg.max_len else tokens
+        logits, l_aux = self._seqpar_local(
+            params, inputs, key=key, training=training,
+            moe_overrides=moe_overrides, attn_mode=attn_mode)
+        tl = logits.shape[1]
+        # the target of position p is token p + 1; the wrapped last one is
+        # dropped below
+        targets = torch.roll(tokens, -1, dims=1)[:, idx * tl:(idx + 1) * tl]
+        tok_nll = self._token_nll(logits, targets)
+        if idx == sp - 1 and inputs.shape[1] == t:
+            tok_nll = tok_nll[:, :-1]
+        nll = net.allreduce_forward(tok_nll.sum(), group) / (b * (t - 1))
+        return nll + l_aux_wt * l_aux, (nll, l_aux)
 
     # ------------------------------------------------------------------
     # Incremental decode (KV cache): the serving path

@@ -42,6 +42,12 @@ def default_ranks():
     return (0,)
 
 
+def default_devices():
+    """The ranks of the initialized world (JAX's `jax.devices()` of the
+    same name), or (0,) without one."""
+    return default_ranks()
+
+
 def this_rank():
     return dist.get_rank() if dist.is_available() and dist.is_initialized() \
         else 0
@@ -158,8 +164,17 @@ class MoeMesh:
                              f"sharded_count={self.sharded_count}")
 
     @property
+    def world_size(self):
+        return len(self.ranks)
+
+    @property
     def gather_group_size(self):
         return self.sharded_count // max(self.adaptive_r, 1)
+
+    def with_adaptive_r(self, r: int) -> "MoeMesh":
+        """The same ranks refactored with r replicas of each expert's
+        weights."""
+        return dataclasses.replace(self, adaptive_r=r)
 
     def build(self) -> ProcessMesh:
         return ProcessMesh(self.ranks, (self.num_expert_groups,

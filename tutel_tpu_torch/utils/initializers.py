@@ -1,4 +1,4 @@
-"""Parameter initializers (counterpart: tutel_tpu/utils/initializers.py:9).
+"""Parameter initializers (counterpart: tutel_tpu/utils/initializers.py).
 
 Same distributions as the JAX module, drawn from an explicit
 `torch.Generator`. The bits differ from `jax.random`'s, so parity with
@@ -20,3 +20,11 @@ def linear_uniform(shape, fan_in, dtype=torch.float32, generator=None,
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
     return (u * (2.0 * bound) - bound).to(dtype)
+
+
+def normal(shape, std=0.01, dtype=torch.float32, generator=None,
+           device="cpu"):
+    """N(0, std^2), drawn in float32, then cast to `dtype`. The generator
+    must live on `device`."""
+    return (torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32) * std).to(dtype)
