@@ -160,9 +160,9 @@ In order, it
      engine's greedy tokens equal the group-less LM's (lm_world1); then it
      destroys the group;
  13. prints one JSON line per check and phase, the {"kernels": [...]} line
-     (all ten kernels; the launches of step 12's and step 14's path runs
-     added, not those of their kernel checks; step 15 launches none), and
-     last
+     (all ten kernels; the launches of step 12's, step 14's and step 16's
+     path runs added, not those of their kernel checks; step 15 launches
+     none), and last
      {"ok": true, "device": {...}};
  14. runs slice 6a under the same world-1 group, after step 12's phases
      and before the group is destroyed: the decode server's INT4 layer
@@ -231,7 +231,37 @@ In order, it
      model_dim 128, 4 layers, 4 experts, top-2, 100 AdamW steps):
      falling losses, the first 10 against the CPU's, tokens/s
      (native_lm). Each example's and trainer's losses are held to the
-     CPU's within 1e-4.
+     CPU's within 1e-4;
+ 16. runs slice 6c's second half under the same world-1 group, after step
+     15's phases and before the group is destroyed, with the CPU results
+     computed before the group exists (slice6c_cpu_refs); before it, with
+     step 7's checks, K6 and K7 at head_dim 16 and 32 against their twins
+     (small_head_dim_checks: serving_decode's LM shape, 8 rows, 4 heads of
+     16, window 96, in float32, K7 over a 64-query bucket from 0; head_dim
+     16 in bfloat16 with each cache; head_dim 32 over INT8), each with its
+     ms, device ms, bound and SDPA's ms. Then examples/serving_decode.py
+     at its defaults, whose LM decodes through K6, K7 and K8 at head_dim
+     16 and which may launch nothing else: every request finishes, the
+     MoE engine's final states within 1e-4 of the CPU's, the LM's tokens/s
+     and ms a decode step (serving_decode); moe_mnist and moe_cifar10 at
+     their defaults (2 epochs) with TF32 off in cuDNN, their epoch-0
+     losses at steps 0 and 20 within 1e-4 of the CPU's, the eval
+     accuracies, ms a step; helloworld_switch at its defaults, each
+     config's output and l_aux within 1e-4 of the CPU's, first-call and
+     warm ms; the single-rank trainers at their defaults
+     (helloworld_from_scratch, helloworld_custom_gate_expert,
+     helloworld_ddp, helloworld_ddp_tutel,
+     helloworld_custom_expert_sharded with one expert a rank,
+     helloworld_multiprocess; every step's loss within 1e-4 of the CPU's;
+     helloworld_amp's bf16 losses within 1e-5 relative, and falling);
+     helloworld_multiprocess through the launcher with
+     OMPI_COMM_WORLD_SIZE=1 in a process of its own, printing the
+     in-process run's losses; all_to_all_v (rows and counts equal to the
+     CPU's) and bandwidth_test's GB/s at one rank (a copy on the card, not
+     a link); tune_moe on the helloworld layer at its defaults, every
+     candidate's output within 1e-5 of the default call's, each
+     candidate's ms and the winner (autotune). Every phase but
+     serving_decode checks that none of K1-K10 launched.
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
@@ -240,6 +270,7 @@ line; without a GPU it exits non-zero at once.
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -994,7 +1025,10 @@ def small_engine_check(activation_bits=0, tol=SMALL_TOL, activation_fn=None,
 
 # the LM server's attention shapes (benchmarks/bench_lm_serving.py, 2k)
 ATT = dict(b=64, nh=8, kvh=2, hd=128, t=2048)
-BYTES_PER_VALUE = {"int8": 1.0, "bfloat16": 2.0, "int4": 0.5}
+BYTES_PER_VALUE = {"int8": 1.0, "bfloat16": 2.0, "int4": 0.5, "float32": 4.0}
+# serving_decode's LM (examples/serving_decode.py): 8 slots, 4 heads of 16,
+# one group a head, a window of 96 positions
+ATT_EXAMPLE = dict(b=8, nh=4, kvh=4, hd=16, t=96)
 
 
 def kv_cache(g, b, t, kvh, hd, mode, deq_dtype=torch.bfloat16):
@@ -1002,8 +1036,8 @@ def kv_cache(g, b, t, kvh, hd, mode, deq_dtype=torch.bfloat16):
     (values, scales or None, the same values dequantized to deq_dtype as
     [B, KVH, T, HD])."""
     x = torch.randn(b * t, kvh, hd, generator=g, device="cuda")
-    if mode == "bfloat16":
-        vals = x.to(torch.bfloat16)
+    if mode in ("bfloat16", "float32"):
+        vals = x.to(getattr(torch, mode))
         return vals.reshape(b, t, -1), None, vals.reshape(
             b, t, kvh, hd).transpose(1, 2)
     fn = (TransformerMoE._kv_quantize if mode == "int8"
@@ -1033,14 +1067,17 @@ def sdpa_ms(q, k_heads, v_heads, mask, profiled=False):
     return (ms, device_ms(call, None)) if profiled else ms
 
 
-def check_decode_attn(mode, bandwidth, b=ATT["b"]):
+def check_decode_attn(mode, bandwidth, b=ATT["b"], shape=ATT,
+                      dtype=torch.bfloat16):
     """K6 with fresh rows over the whole window: every row at pos W - 1;
-    two calls must be bitwise equal."""
-    nh, kvh, hd, t = (ATT[k] for k in ("nh", "kvh", "hd", "t"))
+    two calls must be bitwise equal. `shape` (B aside) and the query type
+    default to the LM server's; a float cache is stored in the query's
+    type ("bfloat16" or "float32")."""
+    nh, kvh, hd, t = (shape[k] for k in ("nh", "kvh", "hd", "t"))
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    q = torch.randn(b, nh, hd, generator=g, device="cuda").to(torch.bfloat16)
-    k, ks, kd = kv_cache(g, b, t, kvh, hd, mode)
-    v, vs, vd = kv_cache(g, b, t, kvh, hd, mode)
+    q = torch.randn(b, nh, hd, generator=g, device="cuda").to(dtype)
+    k, ks, kd = kv_cache(g, b, t, kvh, hd, mode, dtype)
+    v, vs, vd = kv_cache(g, b, t, kvh, hd, mode, dtype)
     kn, kns, _ = kv_cache(g, b, 1, kvh, hd, mode)
     vn, vns, _ = kv_cache(g, b, 1, kvh, hd, mode)
     pos = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
@@ -1061,39 +1098,44 @@ def check_decode_attn(mode, bandwidth, b=ATT["b"]):
     abs_err, err = rel_err(got, ref)
     live = b * (t - 1)                       # cache positions read
     per_pos = 2 * kvh * hd * BYTES_PER_VALUE[mode] + (
-        0 if mode == "bfloat16" else 2 * kvh * 4)
+        0 if mode in ("bfloat16", "float32") else 2 * kvh * 4)
     fresh = 2 * b * (kvh * hd * BYTES_PER_VALUE[mode]
-                     + (0 if mode == "bfloat16" else 4 * kvh))
-    moved = live * per_pos + fresh + 2 * q.numel() * 2 + 4 * b
+                     + (0 if mode in ("bfloat16", "float32") else 4 * kvh))
+    moved = live * per_pos + fresh + 2 * q.numel() * q.element_size() + 4 * b
     ops = 4 * nh * hd * (live + b)
     mask = (torch.arange(t, device="cuda")[None, :]
             <= pos[:, None])[:, None, None, :]
     mq = nh // kvh
-    r = {"name": "decode_attn", "cache": mode, "B": b, "NH": nh, "KVH": kvh,
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    r = {"name": "decode_attn", "cache": mode, "dtype": str(dtype)[6:],
+         "B": b, "NH": nh, "KVH": kvh,
          "HD": hd, "W": t, "fresh": True, "split": split,
-         "max_abs_err": abs_err, "max_rel_err": err, "tol": BF16_TOL,
+         "max_abs_err": abs_err, "max_rel_err": err, "tol": tol,
          "bitwise_repeat": True, "ms": median_ms(call),
          # every kernel of the call (the main kernel and, split, the merge)
          "device_ms": device_ms(call, None), "host_us": host_us(call),
          "plain_ms": median_ms(
              lambda: da.decode_attn_reference(q, k, v, pos, **kw)),
-         **bound(moved, ops, bandwidth)}
+         **bound(moved, ops, bandwidth,
+                 BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK)}
     r["bound_share"] = r["bound_ms"] / r["device_ms"]
-    key = "library_ms" if mode == "bfloat16" else "sdpa_dequant_ms"
+    key = ("library_ms" if mode in ("bfloat16", "float32")
+           else "sdpa_dequant_ms")
     r[key] = sdpa_ms(q[:, :, None], kd.repeat(1, mq, 1, 1),
                      vd.repeat(1, mq, 1, 1), mask)
-    if not err <= BF16_TOL:
-        raise RuntimeError(f"decode_attn ({mode}) disagrees with its twin: "
-                           f"{err} > {BF16_TOL}")
+    if not err <= tol:
+        raise RuntimeError(f"decode_attn ({mode}, HD {hd}) disagrees with "
+                           f"its twin: {err} > {tol}")
     return r
 
 
 def check_prefill_attn(mode, bandwidth, tq=128, start=1536,
-                       dtype=torch.bfloat16):
-    """K7 for the last prompt chunk of a 1664-token prefill: bfloat16
-    queries run its tensor-core kernel, float32 ones its CUDA-core kernel
-    (held to the float32 rate outside the tensor cores)."""
-    b, nh, kvh, hd, t = (ATT[k] for k in ("b", "nh", "kvh", "hd", "t"))
+                       dtype=torch.bfloat16, shape=ATT):
+    """K7 for the last prompt chunk of a 1664-token prefill (by default;
+    `shape` and tq / start give others): bfloat16 queries run its
+    tensor-core kernel, float32 ones its CUDA-core kernel (held to the
+    float32 rate outside the tensor cores)."""
+    b, nh, kvh, hd, t = (shape[k] for k in ("b", "nh", "kvh", "hd", "t"))
     w = start + tq
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
     q = torch.randn(b, tq, nh, hd, generator=g, device="cuda").to(dtype)
@@ -1106,7 +1148,7 @@ def check_prefill_attn(mode, bandwidth, tq=128, start=1536,
     torch.cuda.synchronize()
     abs_err, err = rel_err(got, ref)
     per_pos = 2 * kvh * hd * BYTES_PER_VALUE[mode] + (
-        0 if mode == "bfloat16" else 2 * kvh * 4)
+        0 if mode in ("bfloat16", "float32") else 2 * kvh * 4)
     moved = b * w * per_pos + 2 * q.numel() * q.element_size()
     live = sum(min(w, start + i + 1) for i in range(tq))  # per (b, head)
     ops = 4 * b * nh * hd * live
@@ -1128,8 +1170,7 @@ def check_prefill_attn(mode, bandwidth, tq=128, start=1536,
     r["device_ms"] = device_ms(lambda: da.prefill_attn(q, k, v, start, **kw),
                                "prefill_attn_kernel")
     r["device_tflops"] = ops / (r["device_ms"] * 1e-3) / 1e12
-    key = ("library_ms" if mode == "bfloat16" and dtype == torch.bfloat16
-           else "sdpa_dequant_ms")
+    key = ("library_ms" if mode == str(dtype)[6:] else "sdpa_dequant_ms")
     r[key], r["sdpa_device_ms"] = sdpa_ms(
         q.transpose(1, 2), kd[:, :, :w].repeat(1, mq, 1, 1),
         vd[:, :, :w].repeat(1, mq, 1, 1), mask, profiled=True)
@@ -1137,6 +1178,25 @@ def check_prefill_attn(mode, bandwidth, tq=128, start=1536,
         raise RuntimeError(f"prefill_attn ({mode}, {dtype}) disagrees with "
                            f"its twin: {err} > {tol}")
     return r
+
+
+def small_head_dim_checks(bandwidth):
+    """K6 and K7 at head_dim 16 and 32 (step 16), each line with its ms,
+    bound and SDPA's time: serving_decode's LM shape in float32 (K7 over a
+    64-query prompt bucket from position 0), head_dim 16 in bfloat16 with
+    each cache, and head_dim 32 over an INT8 cache."""
+    for shape, modes, dtype in (
+            (ATT_EXAMPLE, ("float32",), torch.float32),
+            (ATT_EXAMPLE, ("bfloat16", "int8", "int4"), torch.bfloat16),
+            (dict(ATT_EXAMPLE, hd=32), ("int8",), torch.bfloat16)):
+        for mode in modes:
+            for r in (check_decode_attn(mode, bandwidth, b=shape["b"],
+                                        shape=shape, dtype=dtype),
+                      check_prefill_attn(mode, bandwidth, tq=64, start=0,
+                                         dtype=dtype, shape=shape)):
+                print(json.dumps({"phase": "small_head_dim", **r}),
+                      flush=True)
+        torch.cuda.empty_cache()
 
 
 def check_kv_write(bandwidth, layers=4):
@@ -2207,13 +2267,15 @@ def zero_world1(smi, cpu_ref):
             "card": smi}
 
 
-def run_module(argv, timeout=300):
-    """`python -m argv...` from the checkout's root; its standard output.
-    Raises with its output when it fails."""
+def run_module(argv, timeout=300, env=None):
+    """`python -m argv...` from the checkout's root, with `env` over the
+    environment; its standard output. Raises with its output when it
+    fails."""
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, "-m"] + argv, cwd=root,
                           capture_output=True, text=True, timeout=timeout,
-                          env={**os.environ, "PYTHONPATH": root})
+                          env={**os.environ, "PYTHONPATH": root,
+                               **(env or {})})
     if proc.returncode:
         raise RuntimeError(f"python -m {' '.join(argv)} failed "
                            f"({proc.returncode}):\n{proc.stdout[-3000:]}\n"
@@ -3060,6 +3122,62 @@ def check_losses(name, got, ref):
     return err
 
 
+# An Adam trainer's trajectory is not held to the CPU's step by step: its
+# first step moves every parameter by about lr, whatever the size of its
+# gradient, so an element whose gradient is rounding noise (the LM has one
+# at 4.5e-9 of a largest 2.3e-2) moves by +-lr as its sign falls, and the
+# losses part by 1e-4 within 10 steps between two CPU code paths alone.
+# Its steps are held one by one instead: the card takes each step's loss
+# and gradients from the CPU's parameters at that step. The gradients are
+# held by their median step: from the same parameters a gate near-tie can
+# still send one token to another expert on the card, which moves that
+# step's expert gradients by the token's share and the loss by nothing
+# visible, while a fault in the backward would move every step.
+# tools/adam_replay.py shows both.
+def cpu_train_states(loss_fn, start, make_opt, batches):
+    """Trains on the CPU from `start`, one optimizer step a batch; for each
+    step (the parameters it starts from, its loss, its gradients)."""
+    leaves = [p.detach().clone().requires_grad_(True)
+              for p in tree_leaves(start)]
+    params = tree_replace(start, leaves)
+    opt = make_opt(leaves)
+    states = []
+    for batch in batches:
+        before = [p.detach().clone() for p in leaves]
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, batch)
+        loss.backward()
+        states.append((before, float(loss), [p.grad.clone() for p in leaves]))
+        opt.step()
+    return states
+
+
+def check_states(name, loss_fn, start, states, batches, device="cuda"):
+    """From each of the CPU's states, the loss and gradients on `device`:
+    every loss within EXAMPLE_TOL of the CPU's, and the median step's
+    gradient error (|card - CPU| / |CPU| over all leaves as one vector)
+    within F32_TOL. Returns (the losses, the largest loss difference, each
+    step's gradient error)."""
+    losses, loss_err, grad_errs = [], 0.0, []
+    for (before, ref_loss, ref_grads), batch in zip(states, batches):
+        leaves = [p.to(device).requires_grad_(True) for p in before]
+        loss = loss_fn(tree_replace(start, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        losses.append(float(loss))
+        loss_err = max(loss_err, abs(losses[-1] - ref_loss))
+        diff = sum(float((g.cpu() - r).square().sum())
+                   for g, r in zip(grads, ref_grads))
+        grad_errs.append(math.sqrt(diff / sum(float(r.square().sum())
+                                              for r in ref_grads)))
+    if not (loss_err <= EXAMPLE_TOL
+            and statistics.median(grad_errs) <= F32_TOL):
+        raise RuntimeError(f"{name} on the card from the CPU's states: "
+                           f"losses {losses} against "
+                           f"{[st[1] for st in states]}, gradient errors "
+                           f"{grad_errs} (median > {F32_TOL})")
+    return losses, loss_err, grad_errs
+
+
 def vision_start():
     return VisionMoE(VisionMoEConfig(), device="cpu").init(
         torch.Generator().manual_seed(SEED))
@@ -3091,12 +3209,55 @@ def vision_run(device, steps, start=None):
     return model, params, losses, times
 
 
-def slice6b_cpu_refs():
-    """The CPU losses step 15 holds the card's against, computed before
-    the NCCL group exists: seqpar_lm at its defaults in both runs; the
-    vision trainer's and moe_transformer_lm's first steps."""
-    from tutel_tpu_torch import csrc
+def vision_loss(device):
+    """VisionMoE's loss on vision_batch() on `device`, as vision_run
+    takes it, for cpu_train_states / check_states."""
+    model = VisionMoE(VisionMoEConfig(), device=device)
+    images, labels = (a.to(device) for a in vision_batch())
+    return lambda params, _: model.loss(params, images, labels)[0]
+
+
+def native_lm_loss(args, device):
+    """examples/moe_transformer_lm.run's loss on `device` (its model, its
+    key seeded 7, its l_aux weight), for cpu_train_states /
+    check_states."""
     from tutel_tpu_torch.examples import moe_transformer_lm as mtl
+    model = mtl.build_model(args, device)
+    key = torch.Generator(device=device).manual_seed(7)
+    return lambda params, batch: model.loss(
+        params, batch.to(device), key=key, l_aux_wt=args.l_aux_wt)[0]
+
+
+def native_lm_args(device, steps):
+    from tutel_tpu_torch.examples import moe_transformer_lm as mtl
+    return mtl.build_args(["--device", device, "--steps", str(steps)])
+
+
+def adam_cpu_states():
+    """The CPU states of the Adam trainers (cpu_train_states): the vision
+    trainer's first steps; moe_transformer_lm's over the example's start,
+    batches, loss and AdamW, with that start."""
+    from tutel_tpu_torch.examples import moe_transformer_lm as mtl
+    vision = cpu_train_states(
+        vision_loss("cpu"), vision_start(),
+        lambda leaves: torch.optim.Adam(leaves, lr=1e-2),
+        [None] * VISION_CPU_STEPS)
+    args = native_lm_args("cpu", NATIVE_CPU_STEPS)
+    start = mtl.build_model(args, "cpu").init(torch.Generator().manual_seed(0))
+    states = cpu_train_states(
+        native_lm_loss(args, "cpu"), start,
+        lambda leaves: torch.optim.AdamW(leaves, lr=args.lr,
+                                         betas=(0.9, 0.999), eps=1e-8,
+                                         weight_decay=1e-4),
+        mtl.make_batches(args))
+    return {"vision": vision, "native_lm": (start, states)}
+
+
+def slice6b_cpu_refs():
+    """The CPU results step 15 holds the card's against, computed before
+    the NCCL group exists: seqpar_lm's losses at its defaults in both
+    runs; the Adam trainers' states (adam_cpu_states)."""
+    from tutel_tpu_torch import csrc
     from tutel_tpu_torch.examples import seqpar_lm
     built = csrc.native.library_path().exists()
     t0 = time.perf_counter()
@@ -3105,10 +3266,7 @@ def slice6b_cpu_refs():
     refs = {name: seqpar_lm.run(seqpar_lm.build_args(
         ["--device", "cpu"] + argv), log=lambda *_: None)
         for name, argv in SEQPAR_EXAMPLE_ARGV}
-    refs["vision"] = vision_run("cpu", VISION_CPU_STEPS)[2]
-    refs["native_lm"] = mtl.run(mtl.build_args(
-        ["--device", "cpu", "--steps", str(NATIVE_CPU_STEPS)]),
-        log=lambda *_: None)
+    refs.update(adam_cpu_states())
     refs["native_build"] = build
     return refs
 
@@ -3134,18 +3292,21 @@ def vision_train(smi, cpu_refs):
     """VisionMoE at VisionMoEConfig's defaults (32 x 32 x 3 images, patch 4,
     model_dim 64, 4 heads, 4 layers, MoE in 2 of them with 4 experts of
     128, top-2, cf 1.25, float32), 256 images, 20 Adam(1e-2) steps:
-    finite, falling losses, the first 5 within EXAMPLE_TOL of the CPU's,
-    ms a step, peak memory; then its MoE state through scatter_state(., 2)
-    and gather_states back into the model, bit for bit."""
+    finite, falling losses, ms a step, peak memory; from each of the CPU's
+    first 5 states, the loss and gradients (check_states); then its MoE
+    state through scatter_state(., 2) and gather_states back into the
+    model, bit for bit."""
     from tutel_tpu_torch.checkpoint import reshard
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     model, params, losses, times = vision_run("cuda", VISION_STEPS)
+    replay, err, grad_errs = check_states(
+        "vision_train", vision_loss("cuda"), vision_start(),
+        cpu_refs["vision"], [None] * VISION_CPU_STEPS)
     launches = read_launches("vision_train", set())
     peak = torch.cuda.max_memory_allocated() / 1e9
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise RuntimeError(f"vision_train: losses {losses}")
-    err = check_losses("vision_train", losses, cpu_refs["vision"])
     state = model.moe_state_dict(params)
     merged = reshard.gather_states(reshard.scatter_state(state, 2))
     loaded = model.load_moe_state_dict(model.init(torch.Generator(
@@ -3160,7 +3321,9 @@ def vision_train(smi, cpu_refs):
     return {"phase": "vision_train", "config": dataclasses.asdict(
         VisionMoEConfig()) | {"dtype": "float32"}, "batch": VISION_BATCH,
         "steps": VISION_STEPS, "losses": losses, "max_abs_diff_cpu": err,
-        "tol": EXAMPLE_TOL, "cpu_losses": cpu_refs["vision"],
+        "tol": EXAMPLE_TOL, "losses_from_cpu_states": replay,
+        "cpu_losses": [st[1] for st in cpu_refs["vision"]],
+        "grad_rel_err_cpu": grad_errs, "grad_tol_median": F32_TOL,
         "step_ms": times, "median_step_ms": statistics.median(times[1:]),
         "peak_mem_gb": peak, "reshard_bit_exact": True,
         "launches": launches, "card": smi}
@@ -3171,8 +3334,9 @@ def native_lm(smi, cpu_refs):
     slice6b_cpu_refs) against ops/dispatch and
     ops/routing on the card (float32 within F32_TOL, locations exact),
     then examples/moe_transformer_lm.py at its defaults on the card:
-    falling losses, the first 10 within EXAMPLE_TOL of the CPU's,
-    tokens/s; no ported kernel launches in the phase."""
+    falling losses, tokens/s; from each of the CPU's first 10 states, the
+    loss and gradients (check_states); no ported kernel launches in the
+    phase."""
     from tutel_tpu_torch import csrc
     from tutel_tpu_torch.examples import moe_transformer_lm as mtl
     gxx = subprocess.run(["g++", "--version"], capture_output=True,
@@ -3209,10 +3373,14 @@ def native_lm(smi, cpu_refs):
     lines = []
     torch.cuda.reset_peak_memory_stats()
     losses = mtl.run(args, log=lines.append)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    start, states = cpu_refs["native_lm"]
+    replay, err, grad_errs = check_states(
+        "moe_transformer_lm", native_lm_loss(args, "cuda"), start, states,
+        mtl.make_batches(native_lm_args("cpu", len(states))))
     launches = read_launches("native_lm", set())
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise RuntimeError(f"moe_transformer_lm: losses {losses}")
-    err = check_losses("moe_transformer_lm", losses, cpu_refs["native_lm"])
     summary = next(ln for ln in lines if ln.startswith("[Summary]"))
     return {"phase": "native_lm", "gxx": gxx,
             "build": cpu_refs["native_build"],
@@ -3220,12 +3388,14 @@ def native_lm(smi, cpu_refs):
             "shape": {"tokens": s, "experts": e, "model_dim": m, "top_k": k,
                       "capacity": cap},
             "losses_first10": losses[:10], "losses_last": losses[-1],
-            "max_abs_diff_cpu": err, "tol": EXAMPLE_TOL,
-            "cpu_losses": cpu_refs["native_lm"],
+            "losses_from_cpu_states": replay, "max_abs_diff_cpu": err,
+            "tol": EXAMPLE_TOL, "cpu_losses": [st[1] for st in states],
+            "grad_rel_err_cpu": grad_errs, "grad_tol_median": F32_TOL,
             "tokens_per_s": float(re.search(r"~([0-9]+) tokens/s",
                                             summary).group(1)),
-            "summary": summary, "peak_mem_gb":
-                torch.cuda.max_memory_allocated() / 1e9,
+            "summary": summary, "peak_mem_gb": peak,
+            "cpu": {"capability": torch.backends.cpu.get_cpu_capability(),
+                    "threads": torch.get_num_threads()},
             "launches": launches, "card": smi}
 
 
@@ -3241,6 +3411,258 @@ def slice6b_phases(smi, env, cpu_refs):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Slice 6c, second half (step 16): the remaining examples, autotune; the
+# serving_decode LM runs K6, K7 and K8 at head_dim 16
+# ---------------------------------------------------------------------------
+
+# helloworld_amp computes in bfloat16, which the card's kernels and the
+# CPU's could round at other points: its losses are held to the CPU's
+# within AMP_TOL, relative. On an H100 the largest difference was 2.3e-7
+# of the loss (PERF.md §6): the two devices rounded alike. 1e-5 keeps
+# 40 times that reading, and a wrong cast (a bfloat16 ulp is 3.9e-3 of a
+# value) would pass it by orders of magnitude
+AMP_TOL = 1e-5
+# the convnets' logged losses (epoch 0, steps 0 and 20), card against CPU
+CONVNET_STEPS = ((0, 0), (0, 20))
+SWITCH_CPU_STEPS = 5            # each of helloworld_switch's configs once
+
+
+def example(name):
+    import importlib
+    return importlib.import_module(f"tutel_tpu_torch.examples.{name}")
+
+
+def run_example(name, argv, **kw):
+    mod = example(name)
+    return mod.run(mod.build_args(argv), log=lambda *_: None, **kw)
+
+
+# the single-rank trainers held step by step to the CPU: (example, argv)
+TRAINERS = (("helloworld_from_scratch", []),
+            ("helloworld_custom_gate_expert", []),
+            ("helloworld_ddp", []),
+            ("helloworld_ddp_tutel", []),
+            ("helloworld_custom_expert_sharded", ["--num_local_experts", "1"]),
+            ("helloworld_multiprocess", []),
+            ("helloworld_amp", []))
+
+
+def slice6c_cpu_refs():
+    """The CPU results step 16 holds the card's against, computed before
+    the NCCL group exists."""
+    refs = {"serving_decode": run_example("serving_decode",
+                                          ["--device", "cpu"])}
+    for name in ("moe_mnist", "moe_cifar10"):       # epoch 0 is enough
+        refs[name] = run_example(name, ["--device", "cpu", "--epochs", "1"])
+    refs["helloworld_switch"] = run_example(
+        "helloworld_switch", ["--device", "cpu", "--steps",
+                              str(SWITCH_CPU_STEPS)])
+    for name, argv in TRAINERS:
+        refs[name] = run_example(name, ["--device", "cpu"] + argv)
+    refs["all_to_all_v"] = run_example("all_to_all_v", ["--device", "cpu"])
+    return refs
+
+
+def serving_decode_phase(smi, refs):
+    """examples/serving_decode.py at its defaults on the card: every
+    request of both engines finishes, the MoE engine's final states within
+    SMALL_TOL of the CPU's, the LM's tokens/s and ms a decode step; K6, K7
+    and K8 launch (head_dim 16, float32) and no other kernel does."""
+    reset_launches()
+    moe_stats, lm_stats, finals, timing = run_example("serving_decode", [])
+    torch.cuda.synchronize()
+    counts = read_launches("serving_decode",
+                           {"decode_attn", "prefill_attn", "kv_write"})
+    cpu_stats, cpu_lm, cpu_finals, _ = refs["serving_decode"]
+    if not (moe_stats["finished"] == 48 and lm_stats["finished"] == 12):
+        raise RuntimeError(f"serving_decode: {moe_stats}, {lm_stats}")
+    err = max(rel_err(finals[u].float().cpu(), v.float())[1]
+              for u, v in cpu_finals.items())
+    if not err <= SMALL_TOL:
+        raise RuntimeError(f"serving_decode: MoE final states {err} from "
+                           f"the CPU's (> {SMALL_TOL})")
+    return {"phase": "serving_decode", "moe": moe_stats, "lm": lm_stats,
+            "moe_max_rel_err_cpu": err, "tol": SMALL_TOL,
+            "lm_tokens_per_s": timing["tokens_per_s"],
+            "lm_ms_per_decode_step": timing["ms_per_step"],
+            "lm_seconds": timing["seconds"], "head_dim": 16,
+            "launches": counts, "card": smi}
+
+
+def convnet_phase(smi, refs, name):
+    """A convnet example at its defaults (2 epochs) on the card: its losses
+    at epoch 0 steps 0 and 20 within EXAMPLE_TOL of the CPU's, the eval
+    accuracies, ms a training step; no ported kernel launches."""
+    reset_launches()
+    accs, losses, step_s, _ = run_example(name, [])
+    launches = read_launches(name, set())
+    cpu = refs[name][1]
+    err = max(abs(losses[k] - cpu[k]) for k in CONVNET_STEPS)
+    if not err <= EXAMPLE_TOL:
+        raise RuntimeError(f"{name} on the card: losses {losses} against "
+                           f"the CPU's {cpu}")
+    return {"phase": name, "losses": {f"{e}:{i}": v for (e, i), v in
+                                      losses.items()},
+            "cpu_losses": {f"{e}:{i}": v for (e, i), v in cpu.items()},
+            "max_abs_diff_cpu": err, "tol": EXAMPLE_TOL,
+            "eval_accuracy": accs, "cpu_eval_accuracy_epoch0": refs[name][0],
+            "ms_per_step": 1e3 * step_s, "launches": launches, "card": smi}
+
+
+def switch_phase(smi, refs):
+    """helloworld_switch at its defaults (4 x 512 tokens, 1024 x 1024, 2
+    experts, 24 calls over its 5 configs) on the card: each config's
+    output and l_aux within EXAMPLE_TOL of the CPU's (relative to max
+    |output|), first-call and warm ms per config."""
+    reset_launches()
+    timings, outputs = run_example("helloworld_switch", [])
+    launches = read_launches("helloworld_switch", set())
+    cpu = refs["helloworld_switch"][1]
+    per = {}
+    for name, (out, l_aux) in outputs.items():
+        c_out, c_aux = cpu[name]
+        per[name] = {"out_rel_err": rel_err(out, c_out)[1],
+                     "l_aux": l_aux, "l_aux_abs_diff": abs(l_aux - c_aux),
+                     "first_ms": 1e3 * timings[name][0],
+                     "warm_ms": 1e3 * statistics.median(timings[name][1:])}
+        if not (per[name]["out_rel_err"] <= EXAMPLE_TOL
+                and per[name]["l_aux_abs_diff"] <= EXAMPLE_TOL):
+            raise RuntimeError(f"helloworld_switch {name}: {per[name]}")
+    return {"phase": "helloworld_switch", "configs": per,
+            "tol": EXAMPLE_TOL, "launches": launches, "card": smi}
+
+
+def trainers_phase(smi, refs):
+    """The single-rank trainers at their defaults on the card under the
+    world-1 group (helloworld_custom_expert_sharded with one expert a
+    rank): every step's loss within EXAMPLE_TOL of the CPU's (amp's within
+    AMP_TOL relative, and falling), ms a step; no ported kernel
+    launches."""
+    out = {"phase": "trainers", "tol": EXAMPLE_TOL, "amp_tol": AMP_TOL}
+    for name, argv in TRAINERS:
+        reset_launches()
+        losses, ms = timed_run(example(name), example(name).build_args(
+            argv))
+        launches = read_launches(name, set())
+        cpu = refs[name]
+        if name == "helloworld_amp":
+            err = float(np.max(np.abs(np.array(losses) - np.array(cpu))
+                               / np.abs(np.array(cpu))))
+            if not (err <= AMP_TOL and losses[-1] < losses[0]):
+                raise RuntimeError(f"helloworld_amp on the card: {losses} "
+                                   f"against the CPU's {cpu}")
+        else:
+            err = check_losses(name, losses, cpu)
+        out[name] = {"argv": argv, "losses": losses, "cpu_losses": cpu,
+                     "max_diff": err, "median_step_ms":
+                         statistics.median(ms), "launches": launches}
+    out["card"] = smi
+    return out
+
+
+def multiprocess_launch(smi):
+    """helloworld_multiprocess through `python -m tutel_tpu_torch.launcher
+    .run` with OMPI_COMM_WORLD_SIZE=1 in a process of its own (NCCL at
+    world 1): its printed losses equal the in-process run's under the
+    world-1 group, as printed."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    reset_launches()
+    lines = []
+    mp = example("helloworld_multiprocess")
+    mp.run(mp.build_args([]), log=lines.append)
+    launches = read_launches("helloworld_multiprocess", set())
+    want = [ln for ln in lines if ln.startswith("STEP-")]
+    t0 = time.perf_counter()
+    printed = run_module(
+        ["tutel_tpu_torch.launcher.run", "-m",
+         "tutel_tpu_torch.examples.helloworld_multiprocess"],
+        env={"OMPI_COMM_WORLD_SIZE": "1", "OMPI_COMM_WORLD_RANK": "0",
+             "MASTER_ADDR": f"127.0.0.1:{port}"})
+    seconds = time.perf_counter() - t0
+    got = [ln for ln in printed.splitlines() if ln.startswith("STEP-")]
+    if got != want or "[rank 0] world=1 ranks" not in printed:
+        raise RuntimeError(f"the launched helloworld_multiprocess printed "
+                           f"{printed!r}, the in-process run {want}")
+    return {"phase": "helloworld_multiprocess", "launched": got,
+            "in_process": want, "equal": True, "seconds": seconds,
+            "launches": launches, "card": smi}
+
+
+def collectives_phase(smi, refs):
+    """all_to_all_v and bandwidth_test at their defaults over the world-1
+    NCCL group: the received rows and counts equal the CPU's; the GB/s
+    table (one rank: each op is a copy on the card, not a transfer)."""
+    reset_launches()
+    got = run_example("all_to_all_v", [])
+    equal = all(torch.equal(a.cpu(), b) for a, b in
+                zip(got, refs["all_to_all_v"]))
+    if not equal:
+        raise RuntimeError(f"all_to_all_v on the card: {got} against the "
+                           f"CPU's {refs['all_to_all_v']}")
+    rates, outputs = run_example("bandwidth_test", [])
+    launches = read_launches("collectives", set())
+    return {"phase": "collectives", "all_to_all_v_equal_cpu": True,
+            "recv_counts": got[1].tolist(), "bandwidth_gb_s": rates,
+            "bandwidth_size_mb": 64, "iters": 20, "ranks": 1,
+            "launches": launches, "card": smi}
+
+
+def autotune_phase(smi):
+    """tune_moe on the helloworld layer at its defaults (16 x 512 tokens,
+    2048 x 2048, 2 experts, top-2, float32): each candidate's ms a call
+    and the winner; every candidate's output within F32_TOL of the
+    default call's (relative to max |output|), since they are equal
+    configs; no ported kernel launches."""
+    from tutel_tpu_torch.autotune import moe_candidates, tune_moe
+    args = helloworld.build_args(["--device", "cuda"])
+    layer = moe.moe_layer(
+        gate_type={"type": "top", "k": args.top, "capacity_factor": 1.0},
+        experts={"type": "ffn", "num_experts_per_device":
+                 args.num_local_experts,
+                 "hidden_size_per_expert": args.hidden_size},
+        model_dim=args.model_dim, seeds=(1, 1, 1), group=[0],
+        device="cuda")
+    params = layer.init(torch.Generator(device="cuda").manual_seed(SEED))
+    x = torch.randn(args.batch_size * args.num_tokens, args.model_dim,
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 1), device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        ref, _ = layer(params, x)
+        errs = {json.dumps(c, sort_keys=True): rel_err(
+            layer(params, x, **c)[0], ref)[1] for c in moe_candidates(layer)}
+    if not max(errs.values()) <= F32_TOL:
+        raise RuntimeError(f"tune_moe candidates disagree: {errs}")
+    result = tune_moe(layer, params, x, iters=5)
+    launches = read_launches("autotune", set())
+    return {"phase": "autotune", "candidates_rel_err": errs,
+            "tol": F32_TOL, "ms": {k: 1e3 * v for k, v in
+                                   result["timings"].items()},
+            "best": result["best"], "launches": launches, "card": smi}
+
+
+def slice6c_phases(smi, env, refs):
+    """Step 16's phases under the world-1 group, each printing its JSON
+    line; returns serving_decode's launches."""
+    torch.backends.cudnn.allow_tf32 = False    # float32 convolutions in full
+    served = serving_decode_phase(smi, refs)
+    print(json.dumps(served), flush=True)
+    for phase in (lambda: convnet_phase(smi, refs, "moe_mnist"),
+                  lambda: convnet_phase(smi, refs, "moe_cifar10"),
+                  lambda: switch_phase(smi, refs),
+                  lambda: trainers_phase(smi, refs),
+                  lambda: multiprocess_launch(smi),
+                  lambda: collectives_phase(smi, refs),
+                  lambda: autotune_phase(smi)):
+        print(json.dumps(phase()), flush=True)
+        torch.cuda.empty_cache()
+    return served["launches"]
+
+
 def ep_phases(smi, plain_losses, bandwidth):
     """Slice 5a's phases, then slice 5b's, 6a's and 6b / 6c's, in order,
     each printing its JSON line; the process group is destroyed at the
@@ -3254,6 +3676,7 @@ def ep_phases(smi, plain_losses, bandwidth):
     hec, cpu_args = ec_example_args("cpu", False)
     ec_cpu = hec.run(cpu_args, log=lambda *_: None)
     sp_cpu = slice6b_cpu_refs()
+    sd_cpu = slice6c_cpu_refs()
     env = init_world1()
     try:
         print(json.dumps(net_nccl(cpu_ref, env)), flush=True)
@@ -3263,6 +3686,8 @@ def ep_phases(smi, plain_losses, bandwidth):
         for k, n in slice6a_phases(smi, env, ec_cpu).items():
             total[k] += n
         slice6b_phases(smi, env, sp_cpu)
+        for k, n in slice6c_phases(smi, env, sd_cpu).items():
+            total[k] += n
         return total
     finally:
         system.destroy()
@@ -3462,6 +3887,7 @@ def main():
     # K7's float32 kernel (CUDA cores) over the INT8 cache
     print(json.dumps(check_prefill_attn("int8", bandwidth,
                                         dtype=torch.float32)), flush=True)
+    small_head_dim_checks(bandwidth)
     r = check_kv_write(bandwidth)
     print(json.dumps(r), flush=True)
     checks[("kv_write", "int8")] = r

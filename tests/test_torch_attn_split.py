@@ -266,8 +266,9 @@ def test_prepared_writer_refuses_mismatched_rows():
 
 def kernel_geometry(dtype, mode, kvh, hd, mq):
     """(warps of a block, positions of an online-softmax step) of the K6
-    instance a call selects: `block_shape` and `Lanes` (DL dims a lane,
-    LP lanes a position, a step of NPS = min(LP, 8) positions a lane over
+    instance a call selects: `block_shape` and `Lanes` (DL dims a lane:
+    16, 8 with 8 heads a group, at most HD / MQ and, for INT4 at HD 16,
+    8; LP lanes a position, a step of NPS = min(LP, 8) positions a lane over
     32 / LP position groups) in csrc/decode_attn.cu."""
     if mode == "int4":
         row = hd if kvh % 2 == 0 else kvh * hd // 2
@@ -276,7 +277,9 @@ def kernel_geometry(dtype, mode, kvh, hd, mq):
     stage = 2 * da.TILE * row + 2 * da.TILE * 4
     warps = min(da.WARPS, 232448 // (2 * stage))
     mq_t = next(m for m in (1, 2, 4, 8) if m >= mq)
-    lp = hd // (16 if mq_t <= 4 else 8)
+    dl = min(16 if mq_t <= 4 else 8, hd // mq_t,
+             8 if mode == "int4" and hd == 16 else 16)
+    lp = hd // dl
     return warps, min(lp, 8) * (32 // lp)
 
 
@@ -435,3 +438,34 @@ def test_split_emulation_matches_pallas(split, bits, fresh, dtype, nh, kvh,
     assert got.dtype == tt
     _close(got, np.asarray(ref, np.float32),
            1e-2 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.parametrize("split", [1, 3])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("nh,kvh,hd", [(4, 4, 16), (8, 2, 16), (8, 1, 16),
+                                       (3, 1, 16), (4, 4, 32), (8, 1, 32)])
+def test_split_emulation_small_head_dim_matches_twin(split, bits, nh, kvh,
+                                                     hd):
+    """At head_dim 16 and 32 the lanes of a position change (a run of
+    16, 8, 4 or 2 dims a lane; 8 for INT4 at 16, where an odd KVH's group
+    straddles the packed row's halves): the emulation in that geometry
+    against K6's plain twin, float32 with fresh rows."""
+    rng = np.random.default_rng(90 + bits + split + hd + nh)
+    b, t = 5, 96
+    q = rng.standard_normal((b, nh, hd)).astype(np.float32)
+    k, v, ks, vs = _cache(rng, b, t, kvh, hd, bits)
+    kn, vn, kns, vns = _cache(rng, b, 1, kvh, hd, bits)
+    kw = {n: None if x is None else torch.from_numpy(np.array(x))
+          for n, x in dict(k_new=kn[:, 0], v_new=vn[:, 0],
+                           k_new_scale=None if kns is None else kns[..., 0],
+                           v_new_scale=None if vns is None
+                           else vns[..., 0]).items()}
+    kw.update(k_scale=None if ks is None else torch.from_numpy(ks),
+              v_scale=None if vs is None else torch.from_numpy(vs),
+              kv_bits=bits or 8)
+    args = (torch.from_numpy(q), torch.from_numpy(k.copy()),
+            torch.from_numpy(v.copy()),
+            torch.from_numpy(np.asarray([0, 17, 32, 60, 95], np.int32)))
+    got = split_emulation(*args, split, **kw)
+    ref = da.decode_attn_reference(*args, **kw)
+    _close(got, ref.numpy(), 1e-5)

@@ -95,8 +95,9 @@ def ptxas(name):
 
 
 def instance(mangled):
-    """`decode_attn_kernel<dtype, MODE, DPL, MQ>` (or the merge's
-    `<dtype, DPL, MQ>`) from a mangled name."""
+    """`decode_attn_kernel<dtype, MODE, HD, MQ>` (or the merge's
+    `<dtype, HD, MQ>`) from a mangled name; checkouts before the head dims
+    16 and 32 name DPL = HD / 32 in HD's place."""
     kernel = re.search(r"(decode_attn_(?:kernel|merge))", mangled).group(1)
     dtype = "bf16" if "bfloat16" in mangled else "f32"
     args = re.findall(r"Li(\d+)E", mangled)
@@ -123,7 +124,7 @@ def sass_report():
                    for _, op, _ in code)
         rec = {"convergence_instructions": conv}
         if name.startswith("decode_attn_kernel<bf16") and \
-                name.endswith(", 4, 4>"):
+                name.endswith((", 128, 4>", ", 4, 4>")):     # HD 128, MQ 4
             loops = [(int(re.search(r"0x([0-9a-f]+)", args).group(1), 16),
                       addr) for addr, op, args in code
                      if op.startswith("BRA") and re.search(r"0x[0-9a-f]+",

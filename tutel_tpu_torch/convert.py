@@ -61,6 +61,12 @@ def from_jax_params(tree, device="cuda"):
     return to_tensor(tree, device)
 
 
+def hwio_to_oihw(kernel):
+    """A JAX convolution kernel [H, W, in, out] as torch's [out, in, H, W]
+    (contiguous)."""
+    return kernel.permute(3, 2, 0, 1).contiguous()
+
+
 def take_shard(value, dim, count, index):
     """The `index`-th of `count` equal slices of `value` along `dim`. A
     `QuantizedWeight` slices its values, and its scales where their dim is

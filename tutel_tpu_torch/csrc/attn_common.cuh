@@ -48,6 +48,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(full ? 16 : 0) : "memory");
 }
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 8 : 0) : "memory");
+}
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),

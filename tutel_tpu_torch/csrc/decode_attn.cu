@@ -38,8 +38,9 @@
 // group g (neighbouring lanes on neighbouring 16 bytes) and their scales
 // land in shared memory while the warp computes on the previous tile.
 // Within a warp, LP = HD / DL lanes share a position and each owns DL
-// dims (16, or 8 with 8 query heads a group), so q stays in registers and
-// a lane reads a staged row as one 16-byte chunk (DL INT8 values): the
+// dims (16, or 8 with 8 query heads a group; fewer at HD 16 and 32, see
+// Lanes), so q stays in registers and a lane reads a staged row as one
+// chunk of DL values (16 bytes of INT8 at DL 16): the
 // warp covers 32 / LP positions an instruction, each lane LP positions a
 // tile, 8 at a time. A position's MQ partial dots are summed over its LP
 // lanes by a reduce-scatter (lane r keeps head rs_owner(r): 4 shuffles
@@ -80,6 +81,7 @@ namespace {
 
 using attn::cp_async16;
 using attn::cp_async4;
+using attn::cp_async8;
 using attn::smem_u32;
 
 constexpr int kWarps = 4;                // warps of a block, at most
@@ -91,14 +93,22 @@ constexpr size_t kSmemBlock = 232448;    // shared memory a block can use
 constexpr int kStages = 2;               // a warp's tiles in its pipeline
 
 // How a warp covers a tile: DL dims a lane, LP lanes a position, PPW
-// positions an instruction, NP = LP positions a lane.
-template <int DPL, int MQ> struct Lanes {
-  static constexpr int HD = 32 * DPL;
-  static constexpr int DL = MQ <= 4 ? 16 : 8;
+// positions an instruction, NP = LP positions a lane. DL is 16 (8 with 8
+// query heads a group), and smaller at HD 16 and 32 so that a position's
+// LP lanes still hold its MQ heads; an INT4 row at HD 16 takes DL <= 8,
+// since with an odd KVH a group's 16 values straddle the packed row's
+// halves (the low nibbles of its first 8 bytes, then the high nibbles).
+template <int MODE, int HD, int MQ> struct Lanes {
+  static constexpr int kBase = MQ <= 4 ? 16 : 8;
+  static constexpr int kCap = MODE == 2 && HD == 16 ? 8 : 16;
+  static constexpr int DL = kBase < HD / MQ
+      ? (kBase < kCap ? kBase : kCap)
+      : (HD / MQ < kCap ? HD / MQ : kCap);
   static constexpr int LP = HD / DL;
   static constexpr int PPW = 32 / LP;
   static constexpr int NP = kTile / PPW;
   static_assert(LP >= MQ && LP <= 32, "a position's lanes hold its heads");
+  static_assert(DL >= 2 && HD % DL == 0, "a lane's run of dims");
 };
 
 // The launch record (ops/decode_attn.py _RECORD): every pointer, then
@@ -252,11 +262,11 @@ __host__ __device__ constexpr int rs_lane(int m) {
   return r;
 }
 
-template <typename T, int MODE, int DPL, int MQ>
+template <typename T, int MODE, int HD, int MQ>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const Args a) {
-  using L = Lanes<DPL, MQ>;
-  constexpr int HD = L::HD, DL = L::DL, LP = L::LP, PPW = L::PPW,
+  using L = Lanes<MODE, HD, MQ>;
+  constexpr int DL = L::DL, LP = L::LP, PPW = L::PPW,
                 NP = L::NP, NPS = NP < 8 ? NP : 8;
   constexpr bool kQuant = MODE != 0;
   extern __shared__ __align__(16) char smem[];
@@ -303,7 +313,10 @@ decode_attn_kernel(const Args a) {
   const char* vb = a.v + (size_t)b * a.Tc * rb + lo;
   const float* ksb = kQuant ? a.ks + pair * a.Tc : nullptr;
   const float* vsb = kQuant ? a.vs + pair * a.Tc : nullptr;
-  const int cpr = nb / 16;                            // 16-byte chunks a row
+  // the row's copy chunks: 16 bytes, but 8 for INT4 at HD 16, whose rows
+  // (8 * KVH bytes) are 16-byte aligned only with an even KVH
+  constexpr int CB = MODE == 2 && HD == 16 ? 8 : 16;
+  const int cpr = nb / CB;                            // chunks a row
   const uint32_t cpr_inv = 0xffffffffu / cpr + 1;     // c / cpr = umulhi
 
   // copy this warp's i-th tile into stage st; positions past `end`
@@ -316,9 +329,14 @@ decode_attn_kernel(const Args a) {
       const int r = MODE == 2 ? (int)__umulhi(c, cpr_inv) : c / cpr;
       const int ch = c - r * cpr;
       const bool ok = tile + r < end;
-      const size_t off = (size_t)(ok ? tile + r : 0) * rb + ch * 16;
-      cp_async16(smem_u32(kd + r * row + ch * 16), kb + off, ok);
-      cp_async16(smem_u32(vd + r * row + ch * 16), vb + off, ok);
+      const size_t off = (size_t)(ok ? tile + r : 0) * rb + ch * CB;
+      if constexpr (CB == 16) {
+        cp_async16(smem_u32(kd + r * row + ch * CB), kb + off, ok);
+        cp_async16(smem_u32(vd + r * row + ch * CB), vb + off, ok);
+      } else {
+        cp_async8(smem_u32(kd + r * row + ch * CB), kb + off, ok);
+        cp_async8(smem_u32(vd + r * row + ch * CB), vb + off, ok);
+      }
     }
     if constexpr (kQuant) {
       float* sd = reinterpret_cast<float*>(vd + kTile * row);
@@ -523,11 +541,10 @@ decode_attn_kernel(const Args a) {
 // weights exp(m_s - max) and the sum z come next, once per head; then
 // thread d sums dims d, d + blockDim.x, ... of every head over the
 // slices, loads independent of each other.
-template <typename T, int DPL, int MQ>
+template <typename T, int HD, int MQ>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_merge(const float* __restrict__ ws, T* __restrict__ out, int B,
                   int NH, int KVH, int split, int mq) {
-  constexpr int HD = 32 * DPL;
   __shared__ float wf[kMaxSplit * MQ];       // [split][MQ]: m, then weights
   __shared__ float zs[kMaxSplit * MQ];       // [split][MQ]
   __shared__ float wz[MQ];
@@ -580,15 +597,14 @@ inline void block_shape(int row, int HD, int MQ, int& warps, size_t& smem) {
 
 // Launch the instance on `stream`, or with `blocks` set, write how many of
 // its blocks an SM holds at once instead (the split plan's residency).
-template <typename T, int MODE, int DPL, int MQ>
+template <typename T, int MODE, int HD, int MQ>
 cudaError_t launch(const Record& r, cudaStream_t stream, int* blocks) {
-  constexpr int HD = 32 * DPL;
   const int row = staged_row<T, MODE>(r.KVH, HD);
   int warps;
   size_t smem;
   block_shape(row, HD, MQ, warps, smem);
   if (warps < 1) return cudaErrorInvalidValue;
-  auto kernel = decode_attn_kernel<T, MODE, DPL, MQ>;
+  auto kernel = decode_attn_kernel<T, MODE, HD, MQ>;
   // the attributes are set once per device: the most dynamic shared
   // memory, and the SM's whole carveout as shared memory
   static bool wide[64] = {};
@@ -613,27 +629,29 @@ cudaError_t launch(const Record& r, cudaStream_t stream, int* blocks) {
   kernel<<<dim3(r.KVH, r.B, r.split), 32 * warps, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || r.split == 1) return err;
-  decode_attn_merge<T, DPL, MQ><<<dim3(r.KVH, r.B), kThreads, 0, stream>>>(
+  decode_attn_merge<T, HD, MQ><<<dim3(r.KVH, r.B), kThreads, 0, stream>>>(
       r.ws, static_cast<T*>(r.out), r.B, r.NH, r.KVH, r.split, r.NH / r.KVH);
   return cudaGetLastError();
 }
 
 // the group's query heads, rounded up to a power of two (MQ)
-template <typename T, int MODE, int DPL>
+template <typename T, int MODE, int HD>
 cudaError_t launch_mq(const Record& r, cudaStream_t s, int* blocks) {
   const int mq = r.NH / r.KVH;
-  if (mq <= 1) return launch<T, MODE, DPL, 1>(r, s, blocks);
-  if (mq <= 2) return launch<T, MODE, DPL, 2>(r, s, blocks);
-  if (mq <= 4) return launch<T, MODE, DPL, 4>(r, s, blocks);
-  return launch<T, MODE, DPL, 8>(r, s, blocks);
+  if (mq <= 1) return launch<T, MODE, HD, 1>(r, s, blocks);
+  if (mq <= 2) return launch<T, MODE, HD, 2>(r, s, blocks);
+  if (mq <= 4) return launch<T, MODE, HD, 4>(r, s, blocks);
+  return launch<T, MODE, HD, 8>(r, s, blocks);
 }
 
 template <typename T, int MODE>
 cudaError_t launch_hd(const Record& r, cudaStream_t s, int* blocks) {
   switch (r.HD) {
-    case 64: return launch_mq<T, MODE, 2>(r, s, blocks);
-    case 128: return launch_mq<T, MODE, 4>(r, s, blocks);
-    case 256: return launch_mq<T, MODE, 8>(r, s, blocks);
+    case 16: return launch_mq<T, MODE, 16>(r, s, blocks);
+    case 32: return launch_mq<T, MODE, 32>(r, s, blocks);
+    case 64: return launch_mq<T, MODE, 64>(r, s, blocks);
+    case 128: return launch_mq<T, MODE, 128>(r, s, blocks);
+    case 256: return launch_mq<T, MODE, 256>(r, s, blocks);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -675,7 +693,7 @@ extern "C" {
 
 // One launch record (Record; ops/decode_attn.py packs it). mode: 0 =
 // float cache (of q's type), 1 = int8, 2 = int4 split-half; dtype: 0 =
-// float32, 1 = bfloat16; HD in {64, 128, 256}; NH / KVH <= 8; split >= 1
+// float32, 1 = bfloat16; HD in {16, 32, 64, 128, 256}; NH / KVH <= 8; split >= 1
 // slices of the window's tiles (ws holds the partials when split > 1).
 // kn == null runs without a fresh row (then vn, kns, vns are ignored).
 // Returns a cudaError_t.

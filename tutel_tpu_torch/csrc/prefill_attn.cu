@@ -68,7 +68,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 64;       // query rows per block
 constexpr int kCols = 64;       // cache positions per tile
-constexpr int kRun = 16;        // values per vector load
+// values per vector load of a cache row: 16, but 8 for INT4 at HD 16,
+// whose packed rows (8 * KVH bytes) hold a group's 16 values as the low
+// nibbles of 8 bytes, then the high ones, where KVH is odd
+template <int MODE, int HD> __host__ __device__ constexpr int run() {
+  return MODE == 2 && HD == 16 ? 8 : 16;
+}
+constexpr int kRun = 16;        // values per vector load of q
 
 struct Args {
   const void* q;                // [B, TQ, NH, HD] of T
@@ -85,6 +91,7 @@ template <typename T, int MODE, int HD>
 __global__ void __launch_bounds__(kThreads)
 prefill_attn_kernel(const Args a, int mq) {
   constexpr int DV = HD / 16;                      // output dims per thread
+  constexpr int RUN = run<MODE, HD>();
   constexpr bool kQuant = MODE != 0;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                                // [HD][kRows]
@@ -140,22 +147,22 @@ prefill_attn_kernel(const Args a, int mq) {
 
   for (int t0 = 0; t0 < n_pos; t0 += kCols) {
     __syncthreads();                               // previous tile consumed
-    for (int idx = threadIdx.x; idx < kCols * (HD / kRun); idx += kThreads) {
-      const int col = idx / (HD / kRun), c = (idx % (HD / kRun)) * kRun;
+    for (int idx = threadIdx.x; idx < kCols * (HD / RUN); idx += kThreads) {
+      const int col = idx / (HD / RUN), c = (idx % (HD / RUN)) * RUN;
       const int t = t0 + col;
-      float kv[kRun], vv[kRun];
+      float kv[RUN], vv[RUN];
       if (t < n_pos) {
-        attn::load_run<T, MODE, kRun>(kb + (size_t)t * rb, g * HD + c, D, kv);
-        attn::load_run<T, MODE, kRun>(vb + (size_t)t * rb, g * HD + c, D, vv);
+        attn::load_run<T, MODE, RUN>(kb + (size_t)t * rb, g * HD + c, D, kv);
+        attn::load_run<T, MODE, RUN>(vb + (size_t)t * rb, g * HD + c, D, vv);
       } else {
 #pragma unroll
-        for (int u = 0; u < kRun; ++u) kv[u] = vv[u] = 0.f;
+        for (int u = 0; u < RUN; ++u) kv[u] = vv[u] = 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kRun; ++u) kt[(c + u) * kCols + col] = kv[u];
+      for (int u = 0; u < RUN; ++u) kt[(c + u) * kCols + col] = kv[u];
       float4* vrow = reinterpret_cast<float4*>(vt + col * HD + c);
 #pragma unroll
-      for (int u = 0; u < kRun / 4; ++u)
+      for (int u = 0; u < RUN / 4; ++u)
         vrow[u] = make_float4(vv[4 * u], vv[4 * u + 1], vv[4 * u + 2], vv[4 * u + 3]);
     }
     if (threadIdx.x < kCols) {
@@ -231,10 +238,15 @@ prefill_attn_kernel(const Args a, int mq) {
       const float4 pp = *reinterpret_cast<const float4*>(pt + col * kRows + tr * 4);
       const float pa[4] = {pp.x, pp.y, pp.z, pp.w};
       float vv[DV];
+      if constexpr (DV % 4 == 0) {
 #pragma unroll
-      for (int u = 0; u < DV / 4; ++u) {
-        const float4 v4 = *reinterpret_cast<const float4*>(vt + col * HD + tc * DV + 4 * u);
-        vv[4 * u] = v4.x; vv[4 * u + 1] = v4.y; vv[4 * u + 2] = v4.z; vv[4 * u + 3] = v4.w;
+        for (int u = 0; u < DV / 4; ++u) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vt + col * HD + tc * DV + 4 * u);
+          vv[4 * u] = v4.x; vv[4 * u + 1] = v4.y; vv[4 * u + 2] = v4.z; vv[4 * u + 3] = v4.w;
+        }
+      } else {                                     // HD 16 and 32
+#pragma unroll
+        for (int u = 0; u < DV; ++u) vv[u] = vt[col * HD + tc * DV + u];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -274,6 +286,8 @@ cudaError_t launch(const Args& a, int B, int mq, cudaStream_t stream) {
 template <typename T, int MODE>
 cudaError_t launch_hd(const Args& a, int B, int HD, int mq, cudaStream_t s) {
   switch (HD) {
+    case 16: return launch<T, MODE, 16>(a, B, mq, s);
+    case 32: return launch<T, MODE, 32>(a, B, mq, s);
     case 64: return launch<T, MODE, 64>(a, B, mq, s);
     case 128: return launch<T, MODE, 128>(a, B, mq, s);
     case 256: return launch<T, MODE, 256>(a, B, mq, s);
@@ -318,15 +332,20 @@ template <int MODE, int HD> constexpr size_t smem_bytes() {
 
 using attn::cp_async16;
 using attn::cp_async4;
+using attn::cp_async8;
 using attn::cp_async_commit;
 using attn::cp_async_wait;
 using attn::smem_u32;
 
 // byte offset of 16-byte chunk c of row r in a [rows][HD] bf16 tile; the
 // chunks of a row are XOR-swizzled by r % 8, so the 8 rows one ldmatrix
-// phase reads fall in 8 different bank groups
+// phase reads fall in 8 different bank groups. A row of HD 16 or 32 holds
+// 2 or 4 chunks, and 8 / chunks rows share a 128-byte line: there the
+// chunks are swizzled by the line's index instead, to the same end.
 template <int HD> __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * (HD * 2) + ((c ^ (r & 7)) << 4);
+  constexpr int kC = HD / 8;                       // chunks a row
+  if constexpr (kC >= 8) return r * (HD * 2) + ((c ^ (r & 7)) << 4);
+  else return r * (HD * 2) + ((c ^ ((r / (8 / kC)) & (kC - 1))) << 4);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
@@ -394,7 +413,8 @@ prefill_attn_kernel_tc(const Args a, int mq) {
   constexpr int kCols = cols<HD>();              // positions per K/V tile
   constexpr bool kQuant = MODE != 0;
   constexpr int kChunks = HD / 8;                // 16-byte chunks, bf16 row
-  constexpr int kRuns = kQuant ? HD / 16 : HD / 8;  // 16-byte runs, stored
+  constexpr int RUN = run<MODE, HD>();           // values a stored run
+  constexpr int kRuns = kQuant ? HD / RUN : HD / 8;  // runs a stored row
   constexpr int kTile = kCols * HD * 2;          // bytes of a bf16 tile
   constexpr int kRaw = kCols * HD;               // bytes of a stored tile
   constexpr int kScales = 2 * kCols * 4;         // K then V scales, f32
@@ -431,15 +451,20 @@ prefill_attn_kernel_tc(const Args a, int mq) {
       size_t off = (size_t)(live ? t0 + p : 0) * rb;
       uint32_t dk;
       if constexpr (kQuant) {
-        const int c0 = g * HD + 16 * j;          // first logical value
+        const int c0 = g * HD + RUN * j;         // first logical value
         off += MODE == 2 && c0 >= D / 2 ? c0 - D / 2 : c0;
-        dk = smem_u32(raw + stage * kRawStage) + p * HD + 16 * j;
+        dk = smem_u32(raw + stage * kRawStage) + p * HD + RUN * j;
       } else {
         off += ((size_t)g * HD + 8 * j) * 2;
         dk = smem_u32(tiles + stage * kStage) + swz<HD>(p, j);
       }
-      cp_async16(dk, kb + off, live);
-      cp_async16(dk + (kQuant ? kRaw : kTile), vb + off, live);
+      if constexpr (kQuant && RUN == 8) {
+        cp_async8(dk, kb + off, live);
+        cp_async8(dk + kRaw, vb + off, live);
+      } else {
+        cp_async16(dk, kb + off, live);
+        cp_async16(dk + (kQuant ? kRaw : kTile), vb + off, live);
+      }
     }
     if constexpr (kQuant) {
       const uint32_t sc = smem_u32(raw + stage * kRawStage + 2 * kRaw);
@@ -458,18 +483,24 @@ prefill_attn_kernel_tc(const Args a, int mq) {
   auto widen_tile = [&](int stage) {
     const char* rk = raw + stage * kRawStage;
     char* dst = tiles + stage * kStage;
-    for (int idx = threadIdx.x; idx < kCols * (HD / 16); idx += kThreads) {
-      const int p = idx / (HD / 16), j = idx % (HD / 16);
-      const bool high = MODE == 2 && g * HD + 16 * j >= D / 2;
+    for (int idx = threadIdx.x; idx < kCols * kRuns; idx += kThreads) {
+      const int p = idx / kRuns, j = idx % kRuns;
+      const bool high = MODE == 2 && g * HD + RUN * j >= D / 2;
 #pragma unroll
       for (int kv = 0; kv < 2; ++kv) {
-        uint4 lo, hi;
-        widen16<MODE>(*reinterpret_cast<const uint4*>(rk + kv * kRaw +
-                                                      p * HD + 16 * j),
-                      high, lo, hi);
-        *reinterpret_cast<uint4*>(dst + kv * kTile + swz<HD>(p, 2 * j)) = lo;
-        *reinterpret_cast<uint4*>(dst + kv * kTile + swz<HD>(p, 2 * j + 1)) =
-            hi;
+        const char* src = rk + kv * kRaw + p * HD + RUN * j;
+        if constexpr (RUN == 16) {
+          uint4 lo, hi;
+          widen16<MODE>(*reinterpret_cast<const uint4*>(src), high, lo, hi);
+          *reinterpret_cast<uint4*>(dst + kv * kTile + swz<HD>(p, 2 * j)) = lo;
+          *reinterpret_cast<uint4*>(dst + kv * kTile + swz<HD>(p, 2 * j + 1)) =
+              hi;
+        } else {                                 // 8 values: one chunk
+          const uint2 w = *reinterpret_cast<const uint2*>(src);
+          uint4 lo, hi;
+          widen16<MODE>(make_uint4(w.x, w.y, 0u, 0u), high, lo, hi);
+          *reinterpret_cast<uint4*>(dst + kv * kTile + swz<HD>(p, j)) = lo;
+        }
       }
     }
     for (int idx = threadIdx.x; idx < 2 * kCols; idx += kThreads)
@@ -673,6 +704,8 @@ cudaError_t launch_mode(const Args& a, int B, int HD, int mq, int mode,
                         cudaStream_t s) {
 #define TT_PREFILL_HD(MODE)                          \
   switch (HD) {                                      \
+    case 16: return launch<MODE, 16>(a, B, mq, s);   \
+    case 32: return launch<MODE, 32>(a, B, mq, s);   \
     case 64: return launch<MODE, 64>(a, B, mq, s);   \
     case 128: return launch<MODE, 128>(a, B, mq, s); \
     case 256: return launch<MODE, 256>(a, B, mq, s); \
@@ -695,7 +728,7 @@ extern "C" {
 
 // mode: 0 = float cache (of q's type), 1 = int8, 2 = int4 split-half;
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
-// kernel); HD in {64, 128, 256}; NH / KVH <= 64; start + TQ <= W <= Tc;
+// kernel); HD in {16, 32, 64, 128, 256}; NH / KVH <= 64; start + TQ <= W <= Tc;
 // q, k, v 16-byte aligned. Returns a cudaError_t.
 int prefill_attn_launch(const void* q, const void* k, const void* v,
                         const float* ks, const float* vs, void* out, int B,

@@ -73,6 +73,7 @@ layer outside a jit.
 import dataclasses
 import logging
 import math
+import os
 import re
 from types import SimpleNamespace
 from typing import Any, Dict
@@ -135,7 +136,8 @@ class MOELayer:
                 f"global device count ({world_size}).")
         return world_size // -num_local_experts
 
-    def __init__(self, gate_type, model_dim: int, experts=None, seeds=None,
+    def __init__(self, gate_type, model_dim: int, experts=None,
+                 scan_expert_func=None, result_func=None, seeds=None,
                  group=None, a2a_ffn_overlap_degree=1, is_postscore=True,
                  batch_prioritized_routing=False, normalize_gate=True,
                  is_gshard_loss=True, parallel_type="adaptive:1",
@@ -149,6 +151,11 @@ class MOELayer:
                 "MOELayer got an unrecognized constructor argument: %s" % k)
         self.device = resolve_device(device)
         self.model_dim = model_dim
+        self.scan_expert_func = scan_expert_func
+        self.result_func = result_func
+        # SKIP_MOE=1 at construction: the layer passes its input through
+        # (the JAX layer's debug knob, read at the same point)
+        self.skip_moe = int(os.environ.get("SKIP_MOE", "0")) != 0
         self.is_postscore = is_postscore
         self.batch_prioritized_routing = batch_prioritized_routing
         self.normalize_gate = normalize_gate
@@ -215,6 +222,12 @@ class MOELayer:
             model_dim=self.model_dim,
             num_experts_per_device=self.num_global_experts,
             sharded_count=self.sharded_count, **experts)
+        # param name -> (expert dim, shard dim): a custom expert's own
+        # `shard_axes()` in place of the built-in experts' (JAX
+        # `_expert_shard_axes`)
+        self._shard_axes = (self.experts.shard_axes()
+                            if hasattr(self.experts, "shard_axes")
+                            else SHARD_AXES)
 
         if isinstance(gate_type, str):
             if not re.match(r"^Top[0-9]+Gate$", gate_type):
@@ -266,6 +279,9 @@ class MOELayer:
                                  device=self.device) for gate in self.gates]
         expert_params = self.experts.init(expert_gen, dtype=self.dtype,
                                           device=self.device)
+        if self.scan_expert_func is not None:
+            for name, p in expert_params.items():
+                self.scan_expert_func(name, p)
         return {"gates": gate_params, "experts": expert_params}
 
     def shard_params(self, params, adaptive_r=None):
@@ -280,7 +296,7 @@ class MOELayer:
         w, sc, pos = self.world_size, self.sharded_count, self.rank_index
         out = {}
         for name, v in params["experts"].items():
-            e_dim, s_dim = SHARD_AXES.get(name, (0, None))
+            e_dim, s_dim = self._shard_axes.get(name, (0, None))
             if sc == 1:
                 out[name] = take_shard(v, e_dim, w, pos)
                 continue
@@ -325,7 +341,7 @@ class MOELayer:
         for name, p in expert_params.items():
             if isinstance(p, QuantizedWeight) and p.bits == 4 \
                     and p.blocks > 1 \
-                    and SHARD_AXES.get(name, (0, None))[1] is not None:
+                    and self._shard_axes.get(name, (0, None))[1] is not None:
                 p = dataclasses.replace(p, blocks=1)
             out[name] = p
         return out
@@ -446,7 +462,14 @@ class MOELayer:
         capacity_override, else max(1, int(capacity_factor * N / E)) over
         the global pool of N = world * rows tokens (capacity_factor > 0),
         aligned and at most N; l_aux is the router z-loss.
+
+        With SKIP_MOE=1 set at construction the layer is bypassed: it
+        returns (result_func(x), 0). result_func, where given, maps the
+        output of either path.
         """
+        if self.skip_moe:
+            out = self.result_func(x) if self.result_func else x
+            return out, torch.zeros((), dtype=torch.float32, device=x.device)
         if inequivalent_tokens and valid_tokens is None:
             raise ValueError(
                 "inequivalent_tokens=True: per-rank token counts differ, "
@@ -536,6 +559,8 @@ class MOELayer:
             megablocks_size, ragged_max_recv)
         out = out.reshape(*original_shape[:-reserve_dims],
                           *reserve_shape[:-1], -1)
+        if self.result_func is not None:
+            out = self.result_func(out)
         return out, l_aux
 
     def _is_ec(self, gate_index):
@@ -804,7 +829,7 @@ class MOELayer:
 
         out = {}
         for name, p in expert_params.items():
-            e_dim, s_dim = SHARD_AXES.get(name, (0, None))
+            e_dim, s_dim = self._shard_axes.get(name, (0, None))
             if r == 0:
                 if self.sharded_count > 1:
                     if s_dim is not None:
@@ -935,7 +960,7 @@ class MOELayer:
         sc = self.sharded_count
 
         def spec(name, ndim):
-            e_dim, s_dim = SHARD_AXES.get(name, (0, None))
+            e_dim, s_dim = self._shard_axes.get(name, (0, None))
             out = [None] * ndim
             if sc == 1:
                 out[e_dim] = ep_axes
@@ -955,8 +980,8 @@ class MOELayer:
                 experts[name] = dataclasses.replace(
                     v, wstream=(ep_axes,), sb=(ep_axes,))
                 continue
-            self._check_quant_sliceable(name, v,
-                                        SHARD_AXES.get(name, (0, None))[1])
+            self._check_quant_sliceable(
+                name, v, self._shard_axes.get(name, (0, None))[1])
             if isinstance(v, QuantizedWeight):
                 vs = spec(name, v.values.ndim)
                 experts[name] = dataclasses.replace(

@@ -42,7 +42,7 @@ from ..csrc import build
 from .fused_ffn import DTYPE_CODES, check_cuda, sm_count
 
 MASKED = -1e30
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 MODES = {"float": 0, "int8": 1, "int4": 2}
 
 # K6's block (csrc/decode_attn.cu): positions of a warp's tile, warps of a

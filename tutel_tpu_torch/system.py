@@ -74,17 +74,7 @@ def init_data_model_parallel(group_count=1, backend=None, device="cuda",
     factoring: `group_count=-k` means groups of k ranks."""
     global _LOCAL_SESSION
     device = resolve_device(device)
-    backend = backend or BACKENDS[device.type]
-    if not dist.is_initialized() and (
-            init_method is not None or "WORLD_SIZE" in os.environ):
-        if device.type == "cuda":
-            local = int(os.environ.get("LOCAL_RANK", rank if rank is not None
-                                       else os.environ.get("RANK", 0)))
-            torch.cuda.set_device(local % torch.cuda.device_count())
-        dist.init_process_group(
-            backend, init_method=init_method or "env://",
-            rank=-1 if rank is None else rank,
-            world_size=-1 if world_size is None else world_size)
+    maybe_init_distributed(device, backend, init_method, rank, world_size)
     if dist.is_initialized():
         running = dist.get_backend()
         if running != BACKENDS[device.type]:
@@ -107,6 +97,31 @@ def init_data_model_parallel(group_count=1, backend=None, device="cuda",
                       backend=running)
     _LOCAL_SESSION = env
     return env
+
+
+def maybe_init_distributed(device="cuda", backend=None, init_method=None,
+                           rank=None, world_size=None):
+    """Start the process group once, from an explicit `init_method` (with
+    `rank` and `world_size`) or from the environment that the launcher
+    (`launcher.run`) and torchrun set: MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE, RANK, and LOCAL_RANK, which picks the card. Returns
+    whether a group is running. Without either source, or with a group
+    already running, it starts nothing (counterpart:
+    tutel_tpu/system.py:89, whose `jax.distributed.initialize` gives every
+    process the global view)."""
+    device = resolve_device(device)
+    if not dist.is_initialized() and (
+            init_method is not None or "WORLD_SIZE" in os.environ):
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", rank if rank is not None
+                                       else os.environ.get("RANK", 0)))
+            torch.cuda.set_device(local % torch.cuda.device_count())
+        dist.init_process_group(
+            backend or BACKENDS[device.type],
+            init_method=init_method or "env://",
+            rank=-1 if rank is None else rank,
+            world_size=-1 if world_size is None else world_size)
+    return dist.is_initialized()
 
 
 def get_local_session() -> ParallelEnv:
