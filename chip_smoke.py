@@ -160,9 +160,9 @@ In order, it
      engine's greedy tokens equal the group-less LM's (lm_world1); then it
      destroys the group;
  13. prints one JSON line per check and phase, the {"kernels": [...]} line
-     (all ten kernels; the launches of step 12's, step 14's and step 16's
-     path runs added, not those of their kernel checks; step 15 launches
-     none), and last
+     (all ten kernels; the launches of step 12's, step 14's, step 16's
+     and step 17's path runs added, not those of their kernel checks; step
+     15 launches none), and last
      {"ok": true, "device": {...}};
  14. runs slice 6a under the same world-1 group, after step 12's phases
      and before the group is destroyed: the decode server's INT4 layer
@@ -261,7 +261,18 @@ In order, it
      a link); tune_moe on the helloworld layer at its defaults, every
      candidate's output within 1e-5 of the default call's, each
      candidate's ms and the winner (autotune). Every phase but
-     serving_decode checks that none of K1-K10 launched.
+     serving_decode checks that none of K1-K10 launched;
+ 17. runs parted under the same world-1 group, after step 16's phases and
+     before the group is destroyed (parted_phase): tests/test_parted.py's
+     MLP graph at helloworld's default width (x [8192, 2048], w1 and w2
+     [2048, 2048], float32) with K10's squared ReLU as its activation
+     node; optimize() returns the default plan; the default and five
+     forced plans (data-parallel, the K-split FAR, ZERO, A2A + FAR, RS +
+     AG) each list their collectives, issue them through NCCL, hold the
+     output within 1e-4 of the graph as one plain torch chain on the card,
+     launch K10 once a call and nothing else, and time execute()'s ms a
+     step beside the chain's; then optimize(measure=True, top_k=3), its
+     times sorted and positive (tools/parted_phases.py adds a profile).
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
@@ -3663,11 +3674,120 @@ def slice6c_phases(smi, env, refs):
     return served["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Slice 6c's last module (step 17): parted, plans lowered to net collectives
+# ---------------------------------------------------------------------------
+
+# tests/test_parted.py's MLP graph at helloworld's default width (16 x 512
+# tokens, model_dim 2048, hidden 2048), float32; its activation node is K10
+PARTED_SHAPE = {"n": 8192, "k": 2048, "h": 2048, "m": 2048}
+PARTED_TOL = 1e-4          # max |program - plain chain| / max |plain chain|
+# plan: (config, the collectives it lists, in order)
+PARTED_PLANS = {
+    "data_parallel": ({"x": 0, "w1": -1, "y1": 0, "act": 0, "w2": -1,
+                       "y2": 0}, ["all-gather"]),
+    # test_gspmd_inserts_allreduce_for_k_split's FAR plan
+    "k_split_far": ({"x": 1, "w1": 0, "y1": -1, "act": -1, "w2": -1,
+                     "y2": -1}, ["all-reduce"]),
+    "zero": ({"x": 0, "w1": -2, "y1": 0, "act": 0, "w2": -2, "y2": 0},
+             ["all-gather", "all-gather", "all-gather"]),
+    # y1 split on N, act on H: an A2A; w2 split on H, y2 replicated: a FAR
+    "a2a": ({"x": 0, "w1": -1, "y1": 0, "act": 1, "w2": 0, "y2": -1},
+            ["all-to-all", "all-reduce"]),
+    "rs": ({"x": 1, "w1": 0, "y1": 0, "act": 0, "w2": -1, "y2": 0},
+           ["reduce-scatter", "all-gather"]),
+}
+
+
+def parted_graph(spmdx, s=PARTED_SHAPE):
+    """The MLP graph at the shape `s` (n, k, h, m), K10 as its activation
+    node."""
+    x = spmdx.data((s["n"], s["k"]), name="x")
+    w1 = spmdx.param((s["k"], s["h"]), name="w1")
+    w2 = spmdx.param((s["h"], s["m"]), name="w2")
+    y1 = spmdx.custom("NH = NK, KH+", [x, w1], name="y1")
+    act = spmdx.custom("NH = NH", [y1], name="act", fn=SQUARED_RELU)
+    return spmdx.custom("NM = NH, HM+", [act, w2], name="y2")
+
+
+def chain_seconds(fn, steps=5, warmup=2):
+    """Program.execute's loop around fn: seconds a step between two
+    synchronizes."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
+def parted_phase(smi, env):
+    """Step 17: the MLP graph through `parted` under the world-1 NCCL group
+    (its default group). optimize() returns the default plan; five forced
+    plans (data-parallel, the K-split FAR, ZERO, A2A + FAR, RS + AG) each
+    list their collectives, run them through NCCL, hold the output within
+    PARTED_TOL of the graph as one plain torch chain on the card, launch
+    K10 once a call and nothing else, and time execute() beside the chain;
+    then optimize(measure=True, top_k=3). Returns the phase's line."""
+    from tutel_tpu_torch import parted
+    from tutel_tpu_torch.parted import spmdx
+    session = parted.init(device="cuda")
+    y2 = parted_graph(spmdx)
+    graph = spmdx.Graph([y2])
+    (cost, default), = parted.optimize(y2)
+    if (cost, default) != (0.0, spmdx.Config.default(graph)):
+        raise RuntimeError(f"parted.optimize at world 1: {cost}, {default}")
+    args = parted.compile_graph(y2, default).example_inputs(SEED)
+    with torch.no_grad():
+        ref = SQUARED_RELU.fn(args[0] @ args[1]) @ args[2]
+        plain_ms = 1e3 * chain_seconds(
+            lambda: SQUARED_RELU.fn(args[0] @ args[1]) @ args[2])
+    plans, launches = {}, 0
+    for name, (cfg, kinds) in {"default": (dict(default), []),
+                               **PARTED_PLANS}.items():
+        prog = parted.compile_graph(y2, spmdx.Config(cfg))
+        listed = [c.kind for c in prog.collectives]
+        reset_launches()
+        with torch.no_grad():
+            out = prog(*args)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)[1]
+        del out
+        seconds = prog.execute(steps=5, warmup=2, seed=SEED)
+        counts = read_launches(f"parted {name}", {"pallas_kernel"})
+        if not (listed == kinds and counts["pallas_kernel"] == 8
+                and err <= PARTED_TOL):
+            raise RuntimeError(f"parted plan {name}: collectives {listed} "
+                               f"(expected {kinds}), K10 launches {counts} "
+                               f"in 8 calls, error {err} > {PARTED_TOL}?")
+        launches += counts["pallas_kernel"]
+        plans[name] = {"config": cfg, "collectives": listed,
+                       "max_rel_err": err, "ms_per_step": 1e3 * seconds,
+                       "launches": counts["pallas_kernel"], "calls": 8}
+    reset_launches()
+    ranked = parted.optimize(y2, top_k=3, measure=True)
+    counts = read_launches("parted optimize(measure=True)", {"pallas_kernel"})
+    times = [t for t, _ in ranked]
+    if not (times == sorted(times) and all(t > 0 for t in times)):
+        raise RuntimeError(f"parted measured optimize: {ranked}")
+    launches += counts["pallas_kernel"]
+    return {"phase": "parted", "backend": env.backend,
+            "world": session.world, "shape": PARTED_SHAPE,
+            "dtype": "float32", "tol": PARTED_TOL, "plans": plans,
+            "plain_chain_ms_per_step": plain_ms,
+            "plain_chain_tflops": 2 * PARTED_SHAPE["n"] * PARTED_SHAPE["h"]
+            * (PARTED_SHAPE["k"] + PARTED_SHAPE["m"]) / plain_ms / 1e9,
+            "measured": [[1e3 * t, dict(c)] for t, c in ranked],
+            "launches": {"pallas_kernel": launches}, "card": smi}
+
+
 def ep_phases(smi, plain_losses, bandwidth):
-    """Slice 5a's phases, then slice 5b's, 6a's and 6b / 6c's, in order,
-    each printing its JSON line; the process group is destroyed at the
-    end, so the script can exit. Returns the kernels' launches in slice
-    5b's and 6a's phases."""
+    """Slice 5a's phases, then slice 5b's, 6a's, 6b / 6c's and parted's,
+    in order, each printing its JSON line; the process group is destroyed
+    at the end, so the script can exit. Returns the kernels' launches in
+    slice 5b's, 6a's, 6c's and parted's phases."""
     print(json.dumps(megablocks_decode(smi)), flush=True)
     torch.cuda.empty_cache()
     cpu_ref = net_calls("cpu")
@@ -3688,6 +3808,9 @@ def ep_phases(smi, plain_losses, bandwidth):
         slice6b_phases(smi, env, sp_cpu)
         for k, n in slice6c_phases(smi, env, sd_cpu).items():
             total[k] += n
+        parted_line = parted_phase(smi, env)
+        print(json.dumps(parted_line), flush=True)
+        total["pallas_kernel"] += parted_line["launches"]["pallas_kernel"]
         return total
     finally:
         system.destroy()
