@@ -84,7 +84,7 @@ import torch.distributed as dist
 
 from .. import experts as experts_registry
 from .. import gates as gates_registry
-from .. import net
+from .. import net, trace
 from ..convert import take_shard, to_tensor
 from ..ops import dispatch as dispatch_ops
 from ..ops import losses as losses_ops
@@ -392,27 +392,30 @@ class MOELayer:
     def _routing(self, gate_params, x, gate_index, top_k, capacity,
                  noise=None, token_mask=None, with_loss=True):
         """logits -> (noised) scores -> extract_critical."""
-        gate = self.gates[gate_index]
-        logits = gate.apply(gate_params, x)
-        logits_w_noise = logits
-        if noise is not None:
-            logits_w_noise = logits + gate.gate_noise * noise.to(
-                logits.dtype) / self.num_global_experts
-        scores = torch.softmax(logits_w_noise, dim=1)
-        if not with_loss:
-            loss_fn = None
-        elif self.is_gshard_loss:
-            loss_fn = losses_ops.gshard_loss
-        else:
-            def loss_fn(s, topk_ids):
-                return losses_ops.load_importance_loss(
-                    torch.softmax(logits, dim=1),
-                    torch.gather(logits_w_noise, 1, topk_ids),
-                    self.num_global_experts, gate.gate_noise)
-        return routing_ops.extract_critical(
-            scores, top_k, capacity=capacity, loss_fn=loss_fn,
-            batch_prioritized_routing=self.batch_prioritized_routing,
-            normalize_gate=self.normalize_gate, token_mask=token_mask)
+        with trace.span("tutel.moe.route") as sp:
+            if sp:
+                sp.set(samples=x.shape[0], top_k=top_k, capacity=capacity)
+            gate = self.gates[gate_index]
+            logits = gate.apply(gate_params, x)
+            logits_w_noise = logits
+            if noise is not None:
+                logits_w_noise = logits + gate.gate_noise * noise.to(
+                    logits.dtype) / self.num_global_experts
+            scores = torch.softmax(logits_w_noise, dim=1)
+            if not with_loss:
+                loss_fn = None
+            elif self.is_gshard_loss:
+                loss_fn = losses_ops.gshard_loss
+            else:
+                def loss_fn(s, topk_ids):
+                    return losses_ops.load_importance_loss(
+                        torch.softmax(logits, dim=1),
+                        torch.gather(logits_w_noise, 1, topk_ids),
+                        self.num_global_experts, gate.gate_noise)
+            return routing_ops.extract_critical(
+                scores, top_k, capacity=capacity, loss_fn=loss_fn,
+                batch_prioritized_routing=self.batch_prioritized_routing,
+                normalize_gate=self.normalize_gate, token_mask=token_mask)
 
     def _flat(self, x, reserve_dims):
         flat_m = 1
@@ -427,14 +430,15 @@ class MOELayer:
         if valid_tokens is None:
             return None, samples
         vt = torch.as_tensor(valid_tokens).reshape(-1)
-        if vt.numel() == 1:
-            n = int(vt[0]) - self.rank_index * samples
-        elif vt.numel() == self.world_size:
-            n = int(vt[self.rank_index])
-        else:
+        if vt.numel() not in (1, self.world_size):
             raise ValueError(
                 f"valid_tokens must be a scalar or a [world_size="
                 f"{self.world_size}] vector, got {vt.numel()} values")
+        with trace.sync("valid_tokens"):
+            if vt.numel() == 1:
+                n = int(vt[0]) - self.rank_index * samples
+            else:
+                n = int(vt[self.rank_index])
         n = min(max(n, 0), samples)
         return torch.arange(samples, device=device) < n, n
 
@@ -513,8 +517,10 @@ class MOELayer:
                                         capacity_override, megablocks_size,
                                         deg)
         if capacity is None:
-            needed = int(self._count_needed(gate_params, x2, gate_index,
-                                            top_k, noise))
+            needed = self._count_needed(gate_params, x2, gate_index, top_k,
+                                        noise)
+            with trace.sync("capacity"):
+                needed = int(needed)
             capacity = max(1, needed)
             if cf < 0:
                 capacity = min(capacity, routing_ops.capped_capacity_limit(
@@ -639,13 +645,17 @@ class MOELayer:
         # broadcast and a weighted sum take the place of the slot gathers
         elif w == 1 and top_k == self.num_global_experts \
                 and capacity >= x2.shape[0] and megablocks_size == 0:
-            y = dispatch_ops.dense_encode(x2, crit, self.is_postscore)
+            with trace.span("tutel.moe.encode"):
+                y = dispatch_ops.dense_encode(x2, crit, self.is_postscore)
             y = self._apply_experts(expert_params, y, ctx)
-            out = dispatch_ops.dense_decode(y, crit, self.is_postscore)
+            with trace.span("tutel.moe.decode"):
+                out = dispatch_ops.dense_decode(y, crit, self.is_postscore)
         else:
-            y = dispatch_ops.fast_encode(x2, crit, self.is_postscore)
+            with trace.span("tutel.moe.encode"):
+                y = dispatch_ops.fast_encode(x2, crit, self.is_postscore)
             y = self._experts_body(expert_params, y, ctx, r)
-            out = dispatch_ops.fast_decode(y, crit, self.is_postscore)
+            with trace.span("tutel.moe.decode"):
+                out = dispatch_ops.fast_decode(y, crit, self.is_postscore)
         if w > 1:
             l_aux = net.simple_all_reduce(l_aux, self.world_group) / w
         return out, l_aux
@@ -746,12 +756,22 @@ class MOELayer:
         return out, zsum / torch.clamp(zcnt, min=1)
 
     def _apply_experts(self, expert_params, y, ctx):
-        if self.remat_experts:
-            # keep no expert activations for the backward; recompute them
-            return torch.utils.checkpoint.checkpoint(
-                lambda p, t: self.experts.apply(p, t, ctx), expert_params, y,
-                use_reentrant=False)
-        return self.experts.apply(expert_params, y, ctx)
+        with trace.span("tutel.moe.experts") as sp:
+            if sp:
+                sp.set(experts=y.shape[0], capacity=y.shape[1],
+                       routed=getattr(ctx, "routed", None),
+                       model_dim=y.shape[-1],
+                       hidden=getattr(self.experts, "hidden_size_per_expert",
+                                      None),
+                       bits=next((int(v.bits) for v in expert_params.values()
+                                  if hasattr(v, "bits")),
+                                 torch.finfo(y.dtype).bits))
+            if self.remat_experts:
+                # keep no expert activations for the backward; recompute them
+                return torch.utils.checkpoint.checkpoint(
+                    lambda p, t: self.experts.apply(p, t, ctx),
+                    expert_params, y, use_reentrant=False)
+            return self.experts.apply(expert_params, y, ctx)
 
     def _experts_body(self, expert_params, y, ctx, r):
         """The dispatched [E, C, M] buffer through the experts: here (one
@@ -792,12 +812,15 @@ class MOELayer:
         """The world's exchange of the expert buffer, in `a2a_dtype` if
         set, flat or two-level."""
         ct = t if self.a2a_dtype is None else t.to(self.a2a_dtype)
-        if self._flat_2dh():
-            ct = net.all_to_all_2dh(ct, in_dim, out_dim,
-                                    self._hmesh.group("dcn"),
-                                    self._hmesh.group("ici"))
-        else:
-            ct = net.all_to_all(ct, in_dim, out_dim, self.world_group)
+        with trace.span("tutel.moe.a2a") as sp:
+            if sp:
+                sp.set(bytes=ct.numel() * ct.element_size())
+            if self._flat_2dh():
+                ct = net.all_to_all_2dh(ct, in_dim, out_dim,
+                                        self._hmesh.group("dcn"),
+                                        self._hmesh.group("ici"))
+            else:
+                ct = net.all_to_all(ct, in_dim, out_dim, self.world_group)
         return ct if self.a2a_dtype is None else ct.to(t.dtype)
 
     def _gather_expert_params(self, expert_params, r):
@@ -853,7 +876,7 @@ class MOELayer:
                       token_mask=None):
         """Tensor scalar: the most tokens any expert receives from any rank
         (the largest over the world: one all-reduce MAX)."""
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("tutel.moe.probe"):
             crit, _ = self._routing(gate_params, x2, gate_index, top_k, 1,
                                     noise, token_mask, with_loss=False)
             needed = routing_ops.required_capacity(crit.dispatch_count)

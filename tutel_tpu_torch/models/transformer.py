@@ -49,7 +49,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .. import net
+from .. import net, trace
 from ..impls.moe_layer import MOELayer
 from ..ops.activations import gelu
 from ..ops.decode_attn import decode_attn, prefill_attn, unpack_int4
@@ -773,11 +773,16 @@ class TransformerMoE:
         kq, ks = self._stored(k)
         vq, vs = self._stored(v)
         quant = cfg.kv_bits != 0
-        out = decode_attn(
-            q.contiguous(), layer_cache["k"], layer_cache["v"], pos,
-            k_scale=layer_cache.get("k_s"), v_scale=layer_cache.get("v_s"),
-            attn_len=attn_len, kv_bits=cfg.kv_bits or 8, k_new=kq, v_new=vq,
-            k_new_scale=ks, v_new_scale=vs)
+        q = q.contiguous()
+        with trace.span("tutel.attn.decode") as sp:
+            if sp:
+                sp.set(rows=b, window=attn_len or layer_cache["k"].shape[1])
+            out = decode_attn(
+                q, layer_cache["k"], layer_cache["v"], pos,
+                k_scale=layer_cache.get("k_s"),
+                v_scale=layer_cache.get("v_s"), attn_len=attn_len,
+                kv_bits=cfg.kv_bits or 8, k_new=kq, v_new=vq,
+                k_new_scale=ks, v_new_scale=vs)
         pending = {"rows": (kq, vq), "cols": (ks, vs) if quant else None}
         return out.reshape(b, d) @ block["wo"], pending
 
@@ -839,7 +844,10 @@ class TransformerMoE:
                 l_aux_sum = l_aux_sum + l_aux.float()
             else:
                 x = x + self._ffn(block["ffn"], h)
-        self._flush_kv_writes(cache, pendings, pos32)
+        with trace.span("tutel.attn.kv_write") as sp:
+            if sp:
+                sp.set(rows=tokens.shape[0])
+            self._flush_kv_writes(cache, pendings, pos32)
         logits = self._logits(params, self._ln(params["final_ln"], x))
         if capacity_probe:
             return logits, cache, l_aux_sum, needed_max
@@ -900,9 +908,13 @@ class TransformerMoE:
                 self._ln(block["ln1"], x) @ block["wqkv"], (b, tc))
             lc = cache[i]
             self._write_chunk(lc, k, v, start)
-            a = prefill_attn(q.contiguous(), lc["k"], lc["v"], start,
-                             k_scale=lc.get("k_s"), v_scale=lc.get("v_s"),
-                             attn_len=read_len, kv_bits=cfg.kv_bits or 8)
+            q = q.contiguous()
+            with trace.span("tutel.attn.prefill") as sp:
+                if sp:
+                    sp.set(rows=b * tc, window=read_len)
+                a = prefill_attn(q, lc["k"], lc["v"], start,
+                                 k_scale=lc.get("k_s"), v_scale=lc.get("v_s"),
+                                 attn_len=read_len, kv_bits=cfg.kv_bits or 8)
             x = x + a.reshape(b, tc, d) @ block["wo"]
             h = self._ln(block["ln2"], x)
             if i in self.moe_layers:

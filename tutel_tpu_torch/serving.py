@@ -58,7 +58,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import net
+from . import net, trace
 from .ops.fused_ffn import prepare_fused_ffn_params
 from .ops.quant import QuantizedWeight
 
@@ -494,6 +494,8 @@ class LmDecodeEngine:
         self._staged.append((slot, request))
         self._generated[request.uid] = []
         self.stats["joined"] += 1
+        if trace.enabled():
+            trace.event("tutel.request.admit", uid=request.uid)
         return True
 
     # -- prefill (admission flush) --------------------------------------
@@ -504,65 +506,82 @@ class LmDecodeEngine:
         true lengths inside a bucket ride the model's prompt_lens."""
         if not self._staged:
             return
-        q = self.prefill_bucket
-        if q > 0 and "capacity_factor" in self.moe_overrides:
-            # a capacity-limited prefill lets pad tokens compete with
-            # real ones for expert slots: group by exact length
-            q = 0
-        max_len = self.model.cfg.max_len
-        by_len: Dict[int, List[Any]] = {}
-        for slot, req in self._staged:
-            tp = len(req.prompt)
-            bl = min(-(-tp // q) * q, max_len) if q > 0 else tp
-            by_len.setdefault(bl, []).append((slot, req))
-        self._staged = []
-        for bl, group in by_len.items():
-            lens = [len(r.prompt) for _, r in group]
-            prompts = np.stack([np.pad(np.asarray(r.prompt, np.int64),
-                                       (0, bl - len(r.prompt)))
-                                for _, r in group])
-            prompts = torch.from_numpy(prompts).to(self.device)
-            lens_t = torch.tensor(lens, dtype=torch.int32, device=self.device)
-            bucketed = q > 0 and any(n != bl for n in lens)
-            logits, gc = self.model.prefill(
-                self.params, prompts, self.model.init_cache(len(group)),
-                moe_overrides=self.moe_overrides,
-                prompt_lens=lens_t if bucketed else None)
-            first = self._select(logits)
-            slots = torch.tensor([s for s, _ in group], device=self.device)
-            for lc, glc in zip(self.cache, gc):
-                for kk in lc:
-                    lc[kk][slots] = glc[kk]
-            self._tok[slots] = first
-            self._pos[slots] = lens_t
-            for (slot, req), n, tok in zip(group, lens, first.tolist()):
-                self._host_pos[slot] = n
-                self._generated[req.uid].append(tok)
-                self._remaining[slot] -= 1
-                if req.stop_token is not None and tok == req.stop_token:
-                    self._remaining[slot] = 0    # retires at the next sweep
+        with trace.span("tutel.engine.admit") as sp:
+            q = self.prefill_bucket
+            if q > 0 and "capacity_factor" in self.moe_overrides:
+                # a capacity-limited prefill lets pad tokens compete with
+                # real ones for expert slots: group by exact length
+                q = 0
+            max_len = self.model.cfg.max_len
+            by_len: Dict[int, List[Any]] = {}
+            for slot, req in self._staged:
+                tp = len(req.prompt)
+                bl = min(-(-tp // q) * q, max_len) if q > 0 else tp
+                by_len.setdefault(bl, []).append((slot, req))
+            if sp:
+                sp.set(requests=len(self._staged),
+                       prompt_tokens=sum(len(r.prompt)
+                                         for _, r in self._staged),
+                       padded_tokens=sum(bl * len(g)
+                                         for bl, g in by_len.items()),
+                       groups=len(by_len))
+            self._staged = []
+            for bl, group in by_len.items():
+                lens = [len(r.prompt) for _, r in group]
+                prompts = np.stack([np.pad(np.asarray(r.prompt, np.int64),
+                                           (0, bl - len(r.prompt)))
+                                    for _, r in group])
+                prompts = torch.from_numpy(prompts).to(self.device)
+                lens_t = torch.tensor(lens, dtype=torch.int32,
+                                      device=self.device)
+                bucketed = q > 0 and any(n != bl for n in lens)
+                logits, gc = self.model.prefill(
+                    self.params, prompts, self.model.init_cache(len(group)),
+                    moe_overrides=self.moe_overrides,
+                    prompt_lens=lens_t if bucketed else None)
+                first = self._select(logits)
+                slots = torch.tensor([s for s, _ in group],
+                                     device=self.device)
+                for lc, glc in zip(self.cache, gc):
+                    for kk in lc:
+                        lc[kk][slots] = glc[kk]
+                self._tok[slots] = first
+                self._pos[slots] = lens_t
+                with trace.sync("first_tokens"):
+                    first_host = first.tolist()
+                for (slot, req), n, tok in zip(group, lens, first_host):
+                    self._host_pos[slot] = n
+                    self._generated[req.uid].append(tok)
+                    self._remaining[slot] -= 1
+                    if sp:
+                        trace.event("tutel.request.first_token", uid=req.uid)
+                    if req.stop_token is not None and tok == req.stop_token:
+                        self._remaining[slot] = 0  # retires at the next sweep
 
     # -- chunked decode -------------------------------------------------
 
     def _decode_chunk(self, n_steps, cap=None, with_probe=False,
-                      attn_len=None):
+                      attn_len=None, attempt=0):
         """n_steps decode steps from the engine's tokens and positions.
         Returns (tok, pos, toks [n_steps, B], max needed capacity or
         None); self._tok / self._pos are not modified, so a chunk can be
-        replayed."""
+        replayed (`attempt` counts the replays, for the trace)."""
         ov = self.moe_overrides
         if cap is not None:
             ov = {**ov, "capacity_override": cap}
         tok, pos, toks, mx = self._tok, self._pos, [], None
         for _ in range(n_steps):
-            out = self.model.apply_decode(
-                self.params, tok, self.cache, pos, moe_overrides=ov,
-                capacity_probe=with_probe, attn_len=attn_len)
-            if with_probe:
-                mx = out[3] if mx is None else torch.maximum(mx, out[3])
-            tok = self._select(out[0])
-            toks.append(tok)
-            pos = pos + 1
+            with trace.span("tutel.engine.step") as sp:
+                if sp:
+                    sp.set(attempt=attempt)
+                out = self.model.apply_decode(
+                    self.params, tok, self.cache, pos, moe_overrides=ov,
+                    capacity_probe=with_probe, attn_len=attn_len)
+                if with_probe:
+                    mx = out[3] if mx is None else torch.maximum(mx, out[3])
+                tok = self._select(out[0])
+                toks.append(tok)
+                pos = pos + 1
         return tok, pos, torch.stack(toks), mx
 
     def _attn_len(self, n_steps: int) -> Optional[int]:
@@ -610,84 +629,101 @@ class LmDecodeEngine:
         returns {}: the cache and positions advance, but the tokens are
         not recorded (a timing mode). A speculative chunk then cannot
         replay: check `spec_overflow` afterwards."""
-        self._flush_admissions()
-        for slot, req in enumerate(self._slots):
-            if req is not None and self._remaining[slot] <= 0:
-                self._slots[slot] = None     # budget spent by the prefill
-                self._free.append(slot)
-                self.stats["finished"] += 1
-        if self.active == 0:
-            return {}
-        n_steps = max(1, min(n_steps, *[self._remaining[s] for s, r in
-                                        enumerate(self._slots)
-                                        if r is not None]))
-        attn_len = self._attn_len(n_steps)
-        toks_np = None
-        if self.speculative_capacity > 0:
-            cap = self._lm_spec_cap()
-            gen_state = self._gen.get_state()
-            while True:
-                tok, pos, toks, mx = self._decode_chunk(
-                    n_steps, cap=cap, with_probe=True, attn_len=attn_len)
-                if cap >= self.max_batch:
-                    break                          # lossless by construction
-                if not fetch:
-                    over = mx > cap
-                    self._spec_over = over if self._spec_over is None \
-                        else torch.logical_or(self._spec_over, over)
-                    break
-                toks_np = toks.cpu().numpy()     # the overflow check rides
-                needed = int(mx)                 # the fetch of the tokens
-                self._spec_hints[self._hint_key] = max(
-                    self._spec_hints.get(self._hint_key, 0), needed)
-                if needed <= cap:
-                    break
-                self.stats["spec_retries"] += 1
-                toks_np = None
-                self._gen.set_state(gen_state)   # replay the same draws
-                cap = min(self.max_batch,
-                          -(-needed // self.capacity_bucket)
-                          * self.capacity_bucket)
-        else:
-            tok, pos, toks, _ = self._decode_chunk(n_steps, attn_len=attn_len)
-        self._tok, self._pos = tok, pos
-        for slot, req in enumerate(self._slots):
-            if req is not None:
-                self._host_pos[slot] += n_steps
-        if not fetch:
+        with trace.span("tutel.engine.chunk") as sp:
+            self._flush_admissions()
             for slot, req in enumerate(self._slots):
-                if req is None:
-                    continue
-                self._remaining[slot] -= n_steps
-                self.stats["tokens"] += n_steps
-                if self._remaining[slot] <= 0:
-                    self._slots[slot] = None
-                    self._free.append(slot)
-                    self.stats["finished"] += 1
+                if req is not None and self._remaining[slot] <= 0:
+                    self._retire(slot, req, sp)  # budget spent by the prefill
+            if self.active == 0:
+                return {}
+            n_steps = max(1, min(n_steps, *[self._remaining[s] for s, r in
+                                            enumerate(self._slots)
+                                            if r is not None]))
+            attn_len = self._attn_len(n_steps)
+            toks_np, cap, attempt = None, None, 0
+            if self.speculative_capacity > 0:
+                cap = self._lm_spec_cap()
+                gen_state = self._gen.get_state()
+                while True:
+                    tok, pos, toks, mx = self._decode_chunk(
+                        n_steps, cap=cap, with_probe=True, attn_len=attn_len,
+                        attempt=attempt)
+                    if cap >= self.max_batch:
+                        break                      # lossless by construction
+                    if not fetch:
+                        over = mx > cap
+                        self._spec_over = over if self._spec_over is None \
+                            else torch.logical_or(self._spec_over, over)
+                        break
+                    with trace.sync("tokens"):
+                        toks_np = toks.cpu().numpy()  # the overflow check
+                    with trace.sync("capacity"):      # rides the fetch
+                        needed = int(mx)
+                    self._spec_hints[self._hint_key] = max(
+                        self._spec_hints.get(self._hint_key, 0), needed)
+                    if needed <= cap:
+                        break
+                    self.stats["spec_retries"] += 1
+                    attempt += 1
+                    toks_np = None
+                    self._gen.set_state(gen_state)  # replay the same draws
+                    cap = min(self.max_batch,
+                              -(-needed // self.capacity_bucket)
+                              * self.capacity_bucket)
+            else:
+                tok, pos, toks, _ = self._decode_chunk(n_steps,
+                                                       attn_len=attn_len)
+            if sp:
+                sp.set(steps=n_steps, active=self.active, capacity=cap,
+                       replays=attempt, attn_len=attn_len)
+            self._tok, self._pos = tok, pos
+            for slot, req in enumerate(self._slots):
+                if req is not None:
+                    self._host_pos[slot] += n_steps
+            if not fetch:
+                with trace.span("tutel.engine.sweep") as sw:
+                    for slot, req in enumerate(self._slots):
+                        if req is None:
+                            continue
+                        self._remaining[slot] -= n_steps
+                        self.stats["tokens"] += n_steps
+                        if self._remaining[slot] <= 0:
+                            self._retire(slot, req, sw)
+                self.stats["steps"] += n_steps
+                return {}
+            if toks_np is None:
+                with trace.sync("tokens"):
+                    toks_np = toks.cpu().numpy()   # [n_steps, B], one copy
+            results: Dict[Any, List[int]] = {}
+            with trace.span("tutel.engine.sweep") as sw:
+                finished = self.stats["finished"]
+                for slot, req in enumerate(self._slots):
+                    if req is None:
+                        continue
+                    new = toks_np[:, slot].tolist()
+                    stopped = False
+                    if req.stop_token is not None and req.stop_token in new:
+                        # keep up to and including the stop token
+                        new = new[:new.index(req.stop_token) + 1]
+                        stopped = True
+                    self._generated[req.uid].extend(new)
+                    results[req.uid] = new
+                    self._remaining[slot] -= n_steps
+                    self.stats["tokens"] += len(new)
+                    if stopped or self._remaining[slot] <= 0:
+                        self._retire(slot, req, sw)
+                if sw:
+                    sw.set(finished=self.stats["finished"] - finished)
             self.stats["steps"] += n_steps
-            return {}
-        if toks_np is None:
-            toks_np = toks.cpu().numpy()          # [n_steps, B], one copy
-        results: Dict[Any, List[int]] = {}
-        for slot, req in enumerate(self._slots):
-            if req is None:
-                continue
-            new = toks_np[:, slot].tolist()
-            stopped = False
-            if req.stop_token is not None and req.stop_token in new:
-                # keep up to and including the stop token
-                new = new[:new.index(req.stop_token) + 1]
-                stopped = True
-            self._generated[req.uid].extend(new)
-            results[req.uid] = new
-            self._remaining[slot] -= n_steps
-            self.stats["tokens"] += len(new)
-            if stopped or self._remaining[slot] <= 0:
-                self._slots[slot] = None
-                self._free.append(slot)
-                self.stats["finished"] += 1
-        self.stats["steps"] += n_steps
-        return results
+            return results
+
+    def _retire(self, slot, req, sp):
+        """Free a finished request's slot (`sp`: the span it retires in)."""
+        self._slots[slot] = None
+        self._free.append(slot)
+        self.stats["finished"] += 1
+        if sp:
+            trace.event("tutel.request.finish", uid=req.uid)
 
     def run(self, requests: List[LmRequest], chunk: int = 8,
             max_steps: int = 100_000) -> Dict[Any, np.ndarray]:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import trace
 from .parallel import mesh as mesh_lib
 from .utils import resolve_device
 
@@ -158,8 +159,10 @@ def record_time(sync_value=None):
 @contextlib.contextmanager
 def profile_trace(log_dir):
     """A torch.profiler trace of the enclosed region (CPU and, when in use,
-    CUDA activity), written to `log_dir` as a Chrome trace."""
+    CUDA activity), written to `log_dir` as a Chrome trace. The port's
+    spans record inside it; `trace.records()` holds them afterwards."""
     from torch.profiler import ProfilerActivity, profile
+    trace.clear()
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
