@@ -96,8 +96,9 @@ In order, it
      CPU (float32; two-layer experts with INT8 and float caches, SwiGLU
      experts with an INT8 cache): the same greedy tokens, and apply_decode
      logits within 1e-4;
- 10. trains (slice 3; no ported kernel runs there, and each phase checks
-     that none launched): the helloworld trainer of
+ 10. trains (slice 3; of the ported kernels only the location scan runs
+     there, and each phase checks that no other launched): the helloworld
+     trainer of
      tutel_tpu_torch/examples/helloworld.py at the JAX example's default
      width (16 x 512 tokens, model_dim 2048, hidden 2048, 2 experts,
      top-2, float32, capacity_factor 1.0, 10 SGD steps; helloworld_train:
@@ -120,7 +121,8 @@ In order, it
      float32 LM (2 layers, model_dim 128, vocabulary 512) trained 3 steps
      on the card and on the CPU, losses within 1e-4
      (small_lm_train_vs_cpu);
- 11. runs slice 5a (no ported kernel on its float path): the float decode
+ 11. runs slice 5a (no ported kernel but the location scan on its float
+     path): the float decode
      layer (bench_dropless_decode.py --bits 0: 128 experts of 2048 x
      2048, top-2, dropless, 256 tokens, bfloat16) once with megablocks 8
      (two grouped GEMMs, torch._grouped_mm) and once padded (torch.bmm),
@@ -160,9 +162,10 @@ In order, it
      engine's greedy tokens equal the group-less LM's (lm_world1); then it
      destroys the group;
  13. prints one JSON line per check and phase, the {"kernels": [...]} line
-     (all ten kernels; the launches of step 12's, step 14's, step 16's
-     and step 17's path runs added, not those of their kernel checks; step
-     15 launches none), and last
+     (all eleven kernels; the launches of step 12's, step 14's, step
+     16's and step 17's path runs added, not those of their kernel
+     checks; step 15 launches only the location scan, and its launches
+     there are left out), and last
      {"ok": true, "device": {...}};
  14. runs slice 6a under the same world-1 group, after step 12's phases
      and before the group is destroyed: the decode server's INT4 layer
@@ -196,8 +199,9 @@ In order, it
      memory, 1F1B's loss and gradients within 1e-5 of GPipe's, and a
      stage whose body is local_forward of a top-2 and of an EC layer
      against the sequential run (pipeline_world1);
- 15. runs slices 6b and 6c (no ported kernel on their paths; each phase
-     checks that none of K1-K10 launched) under the same world-1 group,
+ 15. runs slices 6b and 6c (no ported kernel but the location scan on
+     their paths; each phase checks that none of K1-K10 launched) under
+     the same world-1 group,
      after step 14's phases and before the group is destroyed, with the
      CPU references computed before the group exists:
      benchmarks/bench_lm_train.py's model (step 10's lm_train, bf16, 32 x
@@ -273,6 +277,17 @@ In order, it
      launch K10 once a call and nothing else, and time execute()'s ms a
      step beside the chain's; then optimize(measure=True, top_k=3), its
      times sorted and positive (tools/parted_phases.py adds a profile).
+
+Every top-k routing on the card (each MoE layer call, the dropless and
+serving capacity probes) launches the location scan, `route_locations`
+(ops/routing.py compute_locations; one kernel up to 4,096 routings,
+three above): each phase above that routes counts its launches among
+the kernels it must launch, and where a phase "may launch only" some
+kernels, or none, the scan is the exception. After step 7's checks it is
+held against its plain twin at the main path's routes (serve_decode's
+2 x 512 over 8 experts, moe_train's 8 x 65,536 over 64), bit-exact,
+with its ms, device ms, host us and bytes bound (check_route_locations);
+moe_profile reads its launches and device ms a step.
 
 Every failed check raises, so the script exits non-zero and prints no "ok"
 line; without a GPU it exits non-zero at once.
@@ -1273,6 +1288,54 @@ def check_kv_write(bandwidth, layers=4):
             "bound_by": "bytes"}
 
 
+def check_route_locations(bandwidth):
+    """The location scan against its plain twin (the int64 one-hot and
+    aten's cumsum) at the main path's routes: serve_decode's, K = 2 of 8
+    experts over 512 tokens (one tile, one launch), and moe_train's, K = 8
+    of 64 over 65,536 (128 tiles, three launches); the ids a transposed
+    view of a stable sort of random scores, as extract_critical hands them
+    on. Locations and counts bit-exact, two calls equal; its launches a
+    call, ms, device ms a call (every kernel of the call), host us and
+    share of the bytes bound (ids read, locations and counts written);
+    the twin's ms and device ms."""
+    out = []
+    for label, s, e, k in (("decode", 512, 8, 2), ("train", 65536, 64, 8)):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 70)
+        scores = torch.rand(s, e, generator=g, device="cuda")
+        ids = torch.sort(scores, dim=1, descending=True,
+                         stable=True)[1][:, :k].t()
+
+        def scan():
+            return routing.compute_locations(ids, e)
+
+        def plain():
+            return routing.compute_locations_reference(ids, e)
+
+        reset_launches()
+        got = scan()
+        n = routing.compute_locations.launches
+        twice, want = scan(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(got, want, twice)):
+            raise RuntimeError(f"the location scan at {label} [{k} x {s}] "
+                               f"x {e}: not equal to its twin, or two "
+                               f"calls differ")
+        moved = 2 * ids.numel() * 8 + e * 4
+        dev = device_ms(scan, None)
+        out.append({
+            "name": "compute_locations", "shape": label, "S": s, "E": e,
+            "K": k, "tiles": routing.scan_tiles(ids), "launches_a_call": n,
+            "max_abs_err": 0, "max_rel_err": 0, "tol": 0.0,
+            "ms": median_ms(scan), "device_ms": dev, "host_us": host_us(scan),
+            "plain_ms": median_ms(plain, reps=5),
+            "plain_device_ms": device_ms(plain, None, reps=5),
+            "bytes": moved, "ops": 0, "bound_ms": 1e3 * moved / bandwidth,
+            "bound_by": "bytes", "bound_share": 1e3 * moved / bandwidth / dev,
+            "library_ms": None})
+    return out
+
+
 LM_CONFIG = dict(vocab_size=32768, max_len=2048, model_dim=1024, num_heads=8,
                  num_kv_heads=2, num_layers=4, ffn_hidden=4096, moe_every=2,
                  num_local_experts=32, top_k=2, capacity_factor=0.0,
@@ -1298,7 +1361,13 @@ KERNELS = {"grouped_gemm_quant": gq.grouped_gemm_quant,
            "decode_attn": da.decode_attn, "prefill_attn": da.prefill_attn,
            "kv_write": kv_write.write_step,
            "inject_kernel": jit.inject_kernel,
-           "pallas_kernel": jit.pallas_kernel}
+           "pallas_kernel": jit.pallas_kernel,
+           "compute_locations": routing.compute_locations}
+# the location scan: every top-k routing on the card launches it (the
+# route of each MoE layer call, the dropless and serving probes), so a
+# phase that routes lists it among the kernels it must launch; its
+# counter counts kernel launches (one a call up to one tile, three above)
+ROUTE = "compute_locations"
 # K10's functions: squared ReLU (Primer; Nemotron-4) and tanh-GELU written
 # from torch ops
 SQUARED_RELU = jit.pallas_kernel(lambda v: torch.relu(v) ** 2)
@@ -1383,7 +1452,8 @@ SYMBOLS = {"grouped_gemm_quant": ("gmm_quant_kernel",),
                                   "fused_swiglu_combine"),
            "decode_attn": ("decode_attn_kernel", "decode_attn_merge"),
            "prefill_attn": ("prefill_attn_kernel",),
-           "kv_write": ("kv_write_kernel",)}
+           "kv_write": ("kv_write_kernel",),
+           "compute_locations": ("route_tile_kernel", "route_scan_kernel")}
 
 
 def of_kernel(name, symbols):
@@ -1470,7 +1540,7 @@ def moe_profile(layer, params, auto_fuse, kernel, seed, steps=8):
                                  ProfilerActivity.CUDA]) as prof:
             eng.step_chunk(steps)
             torch.cuda.synchronize()
-        counts = read_launches(f"moe_profile {kernel}", {kernel})
+        counts = read_launches(f"moe_profile {kernel}", {kernel, ROUTE})
         by_name, n_by_name, busy, span, events = device_time(prof)
         seen = sum(c for n, c in n_by_name.items()
                    if SYMBOLS[kernel][0] in n)
@@ -1485,7 +1555,14 @@ def moe_profile(layer, params, auto_fuse, kernel, seed, steps=8):
                            f"its wrapper counted {counts[kernel]}")
     ms = sum(t for n, t in by_name.items()
              if of_kernel(n, SYMBOLS[kernel])) / 1e3
+    route_ms = sum(t for n, t in by_name.items()
+                   if of_kernel(n, SYMBOLS[ROUTE])) / 1e3
+    route_seen = sum(c for n, c in n_by_name.items()
+                     if of_kernel(n, SYMBOLS[ROUTE]))
     return {"steps": steps, "kernel": kernel, "launches": counts[kernel],
+            "route_launches": counts[ROUTE],
+            "route_launches_traced": route_seen,
+            "route_ms_per_step": route_ms / steps,
             "device_events": events, "device_busy_ms_per_step":
             busy / 1e3 / steps, "span_ms": span / 1e3,
             "busy_share": busy / span,
@@ -1609,7 +1686,8 @@ def small_lm_check(expert_type="ffn", kv_modes=(8, 0), gate_type="top",
 
 
 # ---------------------------------------------------------------------------
-# Training (slice 3): no ported kernel lies on this path
+# Training (slice 3): no ported kernel but the location scan lies on
+# this path
 # ---------------------------------------------------------------------------
 
 # benchmarks/bench_lm_train.py:34-46: its model and batch
@@ -1667,7 +1745,7 @@ def helloworld_train(smi):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, _ = helloworld.run(args, log=lines.append)
-    launches = read_launches("helloworld_train", set())
+    launches = read_launches("helloworld_train", {ROUTE})
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise RuntimeError(f"helloworld losses {losses}: not finite, or "
                            "the last is not below the first")
@@ -1786,7 +1864,7 @@ def lm_train(smi, steps=6):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
         finite.append(bool(ok))
-    launches = read_launches("lm_train", set())
+    launches = read_launches("lm_train", {ROUTE})
     if not all(finite):
         raise RuntimeError(f"lm_train: a loss or gradient is not finite "
                            f"(steps {finite}, losses {losses})")
@@ -1896,7 +1974,7 @@ def megablocks_decode(smi):
         reset_launches()
         outs[mega] = call()
         torch.cuda.synchronize()
-        read_launches(f"megablocks_decode {mega}", set())
+        read_launches(f"megablocks_decode {mega}", {ROUTE})
         prof = profiled(lambda: [call() for _ in range(REPS)])
         gemm = prof["ms_by_kind"].get("gemm", 0.0) / REPS
         report[f"megablocks_{mega}"] = {
@@ -2010,7 +2088,7 @@ def ep_train_world1(smi, env, plain_losses):
     one takes the one-device body, so its losses equal the group-less
     run's (plain_losses) bit for bit; then one INT4 two-call pure-EP layer
     forward (the decode layer, 256 tokens) under the group, which must
-    launch K1 twice and nothing else."""
+    launch K1 twice and nothing else but the location scan."""
     runs = {}
     for name, extra in (("data", ["--parallel_type", "data"]),
                         ("model", ["--parallel_type", "model"]),
@@ -2022,7 +2100,7 @@ def ep_train_world1(smi, env, plain_losses):
         lines = []
         reset_launches()
         losses, _ = helloworld.run(args, log=lines.append)
-        read_launches(f"ep_train_world1 {name}", set())
+        read_launches(f"ep_train_world1 {name}", {ROUTE})
         if losses != plain_losses:
             raise RuntimeError(f"ep_train_world1 {name}: losses {losses} "
                                f"differ from the group-less {plain_losses}")
@@ -2046,7 +2124,8 @@ def ep_train_world1(smi, env, plain_losses):
     reset_launches()
     out, l_aux = layer(params, x)
     torch.cuda.synchronize()
-    counts = read_launches("ep_train_world1 quantized", {"grouped_gemm_quant"})
+    counts = read_launches("ep_train_world1 quantized",
+                           {"grouped_gemm_quant", ROUTE})
     if counts["grouped_gemm_quant"] != 2 or not (
             torch.isfinite(out.float()).all() and out.shape == x.shape):
         raise RuntimeError(f"the quantized EP layer: launches {counts}, "
@@ -2239,7 +2318,7 @@ def quant_sliced(smi, bandwidth):
             outs[d] = lay(on(p, d), xs.to(d))[0].cpu()
         if d == "cuda":
             layer_launches = read_launches("quant_sliced layer",
-                                           {"grouped_gemm_quant"})
+                                           {"grouped_gemm_quant", ROUTE})
     err = float((outs["cuda"] - outs["cpu"]).abs().max()
                 / outs["cpu"].abs().max())
     if not err <= SMALL_TOL:
@@ -2266,7 +2345,7 @@ def zero_world1(smi, cpu_ref):
     CPU run (cpu_ref, made before the group), losses within ZERO_TOL."""
     reset_launches()
     losses, check = zero_run("cuda")
-    launches = read_launches("zero_world1", set())
+    launches = read_launches("zero_world1", {ROUTE})
     err = max(abs(a - b) for a, b in zip(losses, cpu_ref[0]))
     if not (err <= ZERO_TOL and check == cpu_ref[1]):
         raise RuntimeError(f"helloworld_zero on the card {losses} against "
@@ -2330,7 +2409,7 @@ def launcher_checkpoint(smi, plain_losses):
         here_losses = helloworld.run(helloworld.build_args(
             ["--num_steps", "5", "--checkpoint_path", here]),
             log=lambda *_: None)[0]
-        launches = read_launches("launcher_checkpoint", set())
+        launches = read_launches("launcher_checkpoint", {ROUTE})
         if list(here_losses) != list(plain_losses[:5]):
             raise RuntimeError(f"5 steps with --checkpoint_path lost "
                                f"{here_losses}, the group-less run "
@@ -2398,7 +2477,7 @@ def lm_world1(smi, env):
         if label == "group":
             launches = read_launches("lm_world1", {
                 "fused_ffn_quant", "decode_attn", "prefill_attn",
-                "kv_write"})
+                "kv_write", ROUTE})
     if toks["group"] != toks["group_less"]:
         raise RuntimeError("the LM over the world-1 group generated other "
                            "tokens than the group-less LM")
@@ -2745,7 +2824,7 @@ def pipeline_world1(smi, env):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         losses, step_ms = timed_run(module, args)
-        read_launches(f"pipeline_world1 {name}", set())
+        read_launches(f"pipeline_world1 {name}", {ROUTE})
         peak = torch.cuda.max_memory_allocated() / 1e9
         seq = sequential_losses(module, args)
         err = max(abs(a - b) / abs(b) for a, b in zip(losses, seq))
@@ -2856,7 +2935,8 @@ def slice6a_phases(smi, env, ec_cpu_losses):
 
 # ---------------------------------------------------------------------------
 # Slices 6b and 6c (step 15): sequence parallelism, the vision model and
-# the host library; no ported kernel lies on these paths
+# the host library; no ported kernel but the location scan lies on
+# these paths
 # ---------------------------------------------------------------------------
 
 SP_TOL = 2e-2           # the ring body's bf16 logits: per token, of max |logit|
@@ -3022,7 +3102,7 @@ def seqpar_world1(smi, env):
         ms, peak = step_ms(lambda: grads_of(fn, params))
         out.setdefault(name, {}).update(step_ms=ms, peak_mem_gb=peak)
         torch.cuda.empty_cache()
-    out["launches"] = read_launches("seqpar_world1", set())
+    out["launches"] = read_launches("seqpar_world1", {ROUTE})
     out["card"] = smi
     return out
 
@@ -3294,7 +3374,7 @@ def seqpar_example(smi, cpu_refs):
         err = check_losses(f"seqpar_lm {name}", losses, cpu_refs[name])
         out[name] = {"argv": argv, "losses": losses, "max_abs_diff": err,
                      "median_step_ms": statistics.median(ms)}
-    out["launches"] = read_launches("seqpar_example", set())
+    out["launches"] = read_launches("seqpar_example", {ROUTE})
     out["card"] = smi
     return out
 
@@ -3314,7 +3394,7 @@ def vision_train(smi, cpu_refs):
     replay, err, grad_errs = check_states(
         "vision_train", vision_loss("cuda"), vision_start(),
         cpu_refs["vision"], [None] * VISION_CPU_STEPS)
-    launches = read_launches("vision_train", set())
+    launches = read_launches("vision_train", {ROUTE})
     peak = torch.cuda.max_memory_allocated() / 1e9
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise RuntimeError(f"vision_train: losses {losses}")
@@ -3346,8 +3426,9 @@ def native_lm(smi, cpu_refs):
     ops/routing on the card (float32 within F32_TOL, locations exact),
     then examples/moe_transformer_lm.py at its defaults on the card:
     falling losses, tokens/s; from each of the CPU's first 10 states, the
-    loss and gradients (check_states); no ported kernel launches in the
-    phase."""
+    loss and gradients (check_states); of the ported kernels only the
+    location scan launches in the phase (the card's extract_critical
+    above and the example's routes)."""
     from tutel_tpu_torch import csrc
     from tutel_tpu_torch.examples import moe_transformer_lm as mtl
     gxx = subprocess.run(["g++", "--version"], capture_output=True,
@@ -3389,7 +3470,7 @@ def native_lm(smi, cpu_refs):
     replay, err, grad_errs = check_states(
         "moe_transformer_lm", native_lm_loss(args, "cuda"), start, states,
         mtl.make_batches(native_lm_args("cpu", len(states))))
-    launches = read_launches("native_lm", set())
+    launches = read_launches("native_lm", {ROUTE})
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise RuntimeError(f"moe_transformer_lm: losses {losses}")
     summary = next(ln for ln in lines if ln.startswith("[Summary]"))
@@ -3479,12 +3560,14 @@ def serving_decode_phase(smi, refs):
     """examples/serving_decode.py at its defaults on the card: every
     request of both engines finishes, the MoE engine's final states within
     SMALL_TOL of the CPU's, the LM's tokens/s and ms a decode step; K6, K7
-    and K8 launch (head_dim 16, float32) and no other kernel does."""
+    and K8 launch (head_dim 16, float32), and the location scan, and no
+    other kernel does."""
     reset_launches()
     moe_stats, lm_stats, finals, timing = run_example("serving_decode", [])
     torch.cuda.synchronize()
     counts = read_launches("serving_decode",
-                           {"decode_attn", "prefill_attn", "kv_write"})
+                           {"decode_attn", "prefill_attn", "kv_write",
+                            ROUTE})
     cpu_stats, cpu_lm, cpu_finals, _ = refs["serving_decode"]
     if not (moe_stats["finished"] == 48 and lm_stats["finished"] == 12):
         raise RuntimeError(f"serving_decode: {moe_stats}, {lm_stats}")
@@ -3504,10 +3587,11 @@ def serving_decode_phase(smi, refs):
 def convnet_phase(smi, refs, name):
     """A convnet example at its defaults (2 epochs) on the card: its losses
     at epoch 0 steps 0 and 20 within EXAMPLE_TOL of the CPU's, the eval
-    accuracies, ms a training step; no ported kernel launches."""
+    accuracies, ms a training step; of the ported kernels only the
+    location scan launches."""
     reset_launches()
     accs, losses, step_s, _ = run_example(name, [])
-    launches = read_launches(name, set())
+    launches = read_launches(name, {ROUTE})
     cpu = refs[name][1]
     err = max(abs(losses[k] - cpu[k]) for k in CONVNET_STEPS)
     if not err <= EXAMPLE_TOL:
@@ -3528,7 +3612,7 @@ def switch_phase(smi, refs):
     |output|), first-call and warm ms per config."""
     reset_launches()
     timings, outputs = run_example("helloworld_switch", [])
-    launches = read_launches("helloworld_switch", set())
+    launches = read_launches("helloworld_switch", {ROUTE})
     cpu = refs["helloworld_switch"][1]
     per = {}
     for name, (out, l_aux) in outputs.items():
@@ -3548,14 +3632,14 @@ def trainers_phase(smi, refs):
     """The single-rank trainers at their defaults on the card under the
     world-1 group (helloworld_custom_expert_sharded with one expert a
     rank): every step's loss within EXAMPLE_TOL of the CPU's (amp's within
-    AMP_TOL relative, and falling), ms a step; no ported kernel
-    launches."""
+    AMP_TOL relative, and falling), ms a step; of the ported kernels
+    only the location scan launches."""
     out = {"phase": "trainers", "tol": EXAMPLE_TOL, "amp_tol": AMP_TOL}
     for name, argv in TRAINERS:
         reset_launches()
         losses, ms = timed_run(example(name), example(name).build_args(
             argv))
-        launches = read_launches(name, set())
+        launches = read_launches(name, {ROUTE})
         cpu = refs[name]
         if name == "helloworld_amp":
             err = float(np.max(np.abs(np.array(losses) - np.array(cpu))
@@ -3585,7 +3669,7 @@ def multiprocess_launch(smi):
     lines = []
     mp = example("helloworld_multiprocess")
     mp.run(mp.build_args([]), log=lines.append)
-    launches = read_launches("helloworld_multiprocess", set())
+    launches = read_launches("helloworld_multiprocess", {ROUTE})
     want = [ln for ln in lines if ln.startswith("STEP-")]
     t0 = time.perf_counter()
     printed = run_module(
@@ -3627,7 +3711,7 @@ def autotune_phase(smi):
     2048 x 2048, 2 experts, top-2, float32): each candidate's ms a call
     and the winner; every candidate's output within F32_TOL of the
     default call's (relative to max |output|), since they are equal
-    configs; no ported kernel launches."""
+    configs; of the ported kernels only the location scan launches."""
     from tutel_tpu_torch.autotune import moe_candidates, tune_moe
     args = helloworld.build_args(["--device", "cuda"])
     layer = moe.moe_layer(
@@ -3649,7 +3733,7 @@ def autotune_phase(smi):
     if not max(errs.values()) <= F32_TOL:
         raise RuntimeError(f"tune_moe candidates disagree: {errs}")
     result = tune_moe(layer, params, x, iters=5)
-    launches = read_launches("autotune", set())
+    launches = read_launches("autotune", {ROUTE})
     return {"phase": "autotune", "candidates_rel_err": errs,
             "tol": F32_TOL, "ms": {k: 1e3 * v for k, v in
                                    result["timings"].items()},
@@ -3933,7 +4017,7 @@ def main():
     counts = read_launches("inject", {"inject_kernel"})
     print(json.dumps({"phase": "inject", "calls": 4, "launches": counts}),
           flush=True)
-    launches = {"inject_kernel": counts["inject_kernel"]}
+    launches = {"inject_kernel": counts["inject_kernel"], ROUTE: 0}
     del x
     torch.cuda.empty_cache()
 
@@ -3951,7 +4035,7 @@ def main():
             ("w4a8_two_call", layer_w4a8, False, 128, "grouped_gemm_w8a8")):
         reset_launches()
         eng, seconds = serve(lay, params, n_req, (8, 32), auto_fuse, SEED)
-        counts = read_launches(path, {runs})
+        counts = read_launches(path, {runs, ROUTE})
         print(json.dumps({
             "phase": "serve", "path": path, "requests": n_req,
             "tokens": eng.stats["tokens"], "decode_steps": eng.stats["steps"],
@@ -3959,6 +4043,7 @@ def main():
             "tokens_per_s": eng.stats["tokens"] / seconds,
             "launches": counts, "card": smi}), flush=True)
         launches[runs] = counts[runs]
+        launches[ROUTE] += counts[ROUTE]
 
     # the device time of a step on the paths of K1 (two-call) and K3 (W4A8
     # fused)
@@ -3971,7 +4056,7 @@ def main():
     reset_launches()
     eng, seconds = serve(layer_jit, params, 128, (8, 32), False, SEED)
     counts = read_launches("jit_serve", {"grouped_gemm_quant",
-                                         "pallas_kernel"})
+                                         "pallas_kernel", ROUTE})
     if counts["grouped_gemm_quant"] != 2 * counts["pallas_kernel"]:
         raise RuntimeError(f"jit_serve launched {counts}: expected two K1 "
                            f"launches per K10 launch")
@@ -3984,6 +4069,7 @@ def main():
         "ms_per_decode_step": 1e3 * seconds / eng.stats["steps"],
         "launches": counts, "card": smi}), flush=True)
     launches["pallas_kernel"] = counts["pallas_kernel"]
+    launches[ROUTE] += counts[ROUTE]
 
     print(json.dumps({"phase": "small_engine_vs_cpu",
                       "max_rel_err": small_engine_check(), "tol": SMALL_TOL}),
@@ -4014,6 +4100,9 @@ def main():
     r = check_kv_write(bandwidth)
     print(json.dumps(r), flush=True)
     checks[("kv_write", "int8")] = r
+    for r in check_route_locations(bandwidth):
+        print(json.dumps(r), flush=True)
+        checks[(r["name"], r["shape"])] = r
     for name in ("decode_attn", "prefill_attn"):   # the bf16 cache's SDPA
         checks[(name, "int8")]["library_ms"] = \
             checks[(name, "bfloat16")]["library_ms"]
@@ -4031,13 +4120,15 @@ def main():
         print(json.dumps({"phase": f"{label}_warmup", **warm}), flush=True)
         reset_launches()
         lm_run = lm_serve(lm, lm_p, 64, 1664, 320, SEED)
-        counts = read_launches(f"{label} serve", attn | {ffn_kernel})
+        counts = read_launches(f"{label} serve",
+                               attn | {ffn_kernel, ROUTE})
         print(json.dumps({"phase": f"{label}_serve", **lm_run,
                           "launches": counts, "card": smi}), flush=True)
         if label == "lm":
             launches.update({k: counts[k] for k in attn})
         else:
             launches[ffn_kernel] = counts[ffn_kernel]
+        launches[ROUTE] += counts[ROUTE]
         print(json.dumps({"phase": f"{label}_profile",
                           **lm_profile(lm, lm_p, SEED + 2)}), flush=True)
         print(json.dumps({"phase": f"{label}_prefill_profile",
@@ -4085,7 +4176,10 @@ def main():
                           "16384x2048"),
         "pallas_kernel": ("tutel_tpu_torch/csrc/elementwise.cu",
                           "tutel_tpu/jit.py:74",
-                          "squared_relu_bfloat16_128x32x2048")}
+                          "squared_relu_bfloat16_128x32x2048"),
+        # no TPU kernel: the JAX package's jnp.cumsum over the one-hot
+        "compute_locations": ("tutel_tpu_torch/csrc/route_locations.cu",
+                              "tutel_tpu/ops/routing.py:55", "train")}
     kernels = []
     for name, (source, replaces, shape) in sources.items():
         r = checks[(name, shape)]
@@ -4093,7 +4187,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_ms": r.get("device_ms"),
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -113,3 +113,54 @@ def test_encode_decode_match_jax_with_drops(postscore):
            jd.fast_decode(jnp.asarray(y), ref, postscore))
     with pytest.raises(ValueError):
         td.fast_decode(torch.zeros(e, cap + 1, m), got)
+
+
+def _one_hot_locations(indices, e, mask=None, order=None):
+    """The old interface's formula, written out: the exclusive cumsum over
+    the k-major [K*S, E] one-hot, in the order's ranking within every k;
+    masked tokens take no slot and get -1."""
+    k, s = indices.shape
+    flat = (indices.reshape(-1)[:, None] == np.arange(e)).astype(np.int64)
+    if mask is not None:
+        flat *= np.tile(mask, k)[:, None]
+    perm = np.arange(k * s) if order is None else \
+        (order[None, :] + (np.arange(k) * s)[:, None]).reshape(-1)
+    csum = np.empty_like(flat)
+    csum[perm] = np.cumsum(flat[perm], axis=0) - 1
+    loc = np.sum(csum * flat, axis=1).reshape(k, s)
+    if mask is not None:
+        loc = np.where(mask[None, :], loc, -1)
+    return loc, flat.sum(axis=0).astype(np.int32)
+
+
+@pytest.mark.parametrize("k,s,e", [(1, 7, 3), (2, 20, 5), (3, 33, 6),
+                                   (8, 64, 64), (2, 50, 1)])
+@pytest.mark.parametrize("masked,ordered", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_compute_locations_matches_one_hot_and_jax(k, s, e, masked,
+                                                   ordered):
+    rng = np.random.default_rng(k * 100 + s + e)
+    # top-k ids: k distinct experts a token (e >= k), or repeats (e < k)
+    ids = np.stack([rng.permutation(e)[:k] if e >= k else
+                    rng.integers(0, e, k) for _ in range(s)], axis=1)
+    mask = rng.random(s) < 0.7 if masked else None
+    order = rng.permutation(s) if ordered else None
+    t = (lambda a: None if a is None else torch.from_numpy(a))
+    # a transposed view, as extract_critical hands the sort's ids on
+    ids_t = torch.from_numpy(np.ascontiguousarray(ids.T)).t()
+    loc, counts = tr.compute_locations(ids_t, e, t(mask), t(order))
+    assert loc.dtype == torch.int64 and counts.dtype == torch.int32
+    want_loc, want_counts = _one_hot_locations(ids, e, mask, order)
+    np.testing.assert_array_equal(loc.numpy(), want_loc)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    onehot = (ids[:, :, None] == np.arange(e)).astype(np.int32)
+    if masked:
+        onehot *= mask[None, :, None].astype(np.int32)
+    jloc, jcounts = jr.compute_locations(
+        jnp.asarray(onehot), None if order is None else jnp.asarray(order))
+    jloc = np.asarray(jloc)
+    if masked:
+        jloc = np.where(mask[None, :], jloc, -1)
+    np.testing.assert_array_equal(loc.numpy(), jloc)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    assert tr.scan_tiles(ids_t) == 0

@@ -27,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from tutel_tpu_torch import moe as tmoe
 from tutel_tpu_torch import system, trace
 from tutel_tpu_torch.models import TransformerMoE, TransformerMoEConfig
+from tutel_tpu_torch.ops import routing as routing_ops
 from tutel_tpu_torch.serving import LmDecodeEngine, LmRequest
 from tutel_tpu_torch.testing import RankPool
 
@@ -217,6 +218,32 @@ def test_dropless_training_forward_records_its_probe():
     routes = [r for r in recs if r.name == "tutel.moe.route"
               and by_id.get(r.parent) is None]
     assert [r.attrs["capacity"] for r in routes] == [want]
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_route_records_its_scan_tiles(device):
+    """`tutel.moe.route` carries the location scan's tiles: 0 where the
+    plain twin runs (CPU), ceil(K*S / TILE) on CUDA."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the location scan has no CPU mode")
+    layer = tmoe.moe_layer(
+        gate_type={"type": "top", "k": 2, "capacity_factor": 0.0},
+        experts={"type": "ffn", "num_experts_per_device": 4,
+                 "hidden_size_per_expert": 32},
+        model_dim=16, device=device)
+    params = layer.init(torch.Generator(device=device).manual_seed(0))
+    tokens = 3000                      # 6,000 routings: two tiles on CUDA
+    x = torch.randn(2, tokens // 2, 16, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        layer(params, x, training=True)
+    routes = [r for r in trace.records() if r.name == "tutel.moe.route"]
+    trace.clear()
+    assert len(routes) == 2                 # the probe's and the forward's
+    want = 0 if device == "cpu" else -(-2 * tokens // routing_ops.TILE)
+    assert [r.attrs["scan_tiles"] for r in routes] == [want, want]
 
 
 def test_profile_trace_starts_a_fresh_record_set(tmp_path):

@@ -55,10 +55,15 @@ SIGNATURES = {
     # q, k, v, ks, vs, out; B, TQ, NH, KVH, HD, T, W, start, mode, dtype,
     # device; stream
     "prefill_attn": ("prefill_attn_launch", [_P] * 6 + [_I] * 11 + [_P]),
+    # one launch record (ops/routing.py _RECORD)
+    "route_locations": ("route_locations_launch", [ctypes.c_char_p]),
 }
 SOURCES = tuple(SIGNATURES)
-# entry points a source has besides its launch: record, int* answer
-QUERIES = {"decode_attn": {"decode_attn_occupancy": [ctypes.c_char_p, _P]}}
+# entry points a source has besides its launch: record, pointer to the
+# answer
+QUERIES = {"decode_attn": {"decode_attn_occupancy": [ctypes.c_char_p, _P]},
+           "route_locations": {"route_locations_scratch":
+                               [ctypes.c_char_p, _P]}}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -412,10 +412,13 @@ class MOELayer:
                         torch.softmax(logits, dim=1),
                         torch.gather(logits_w_noise, 1, topk_ids),
                         self.num_global_experts, gate.gate_noise)
-            return routing_ops.extract_critical(
+            routed = routing_ops.extract_critical(
                 scores, top_k, capacity=capacity, loss_fn=loss_fn,
                 batch_prioritized_routing=self.batch_prioritized_routing,
                 normalize_gate=self.normalize_gate, token_mask=token_mask)
+            if sp:
+                sp.set(scan_tiles=routing_ops.scan_tiles(routed[0].indices))
+            return routed
 
     def _flat(self, x, reserve_dims):
         flat_m = 1
